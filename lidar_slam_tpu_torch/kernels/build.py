@@ -7,8 +7,9 @@ interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o build/kernels/libslamkernels_<hash>.so csrc/*.cu
 
 The library is written under build/kernels/ at the repository root at
-first use, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads the existing file. Nothing here runs at
+first use, named by a hash of the flags and of every file under csrc/
+(headers included), so an edited source rebuilds and an unchanged one
+loads the existing file. Nothing here runs at
 import time: this module imports on hosts without nvcc or a GPU.
 """
 
@@ -49,8 +50,8 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
+    for src in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
+        h.update(src.relative_to(CSRC_DIR).as_posix().encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libslamkernels_{h.hexdigest()[:16]}.so"
 
@@ -85,4 +86,6 @@ def library() -> ctypes.CDLL:
     lib.slam_nn_argmin.restype = i
     lib.slam_raywalk_build.argtypes = [p, p, i, i, i, i, i, f, f, p, p]
     lib.slam_raywalk_build.restype = i
+    lib.slam_raywalk_scan.argtypes = [p, p, i, i, i, i, f, f, i, p, p]
+    lib.slam_raywalk_scan.restype = i
     return lib

@@ -13,10 +13,11 @@ semantics (modules/ogm.py:5-231) and quirks:
     (value 1 marks FREE cells).
 
 Two engines build the map from the rays' integer end cells (ray_ends):
-the scatter path below (plain PyTorch, the plain version of the kernel) and
-the Hopper ray-walk kernel (kernels/raywalk.py, csrc/raywalk.cu). Both
-apply each cell's adds in ray order, so their float32 maps are equal bit
-for bit.
+the scatter path below (plain PyTorch, the plain version of the kernels)
+and the Hopper ray-walk kernels (kernels/raywalk.py, csrc/raywalk.cu):
+raywalk_build for a whole build, raywalk_scan for one scan on a carried
+grid (update_map, the online mode's step). Both engines apply each cell's
+adds in ray order, so their float32 maps are equal bit for bit.
 """
 
 from __future__ import annotations
@@ -104,24 +105,52 @@ def scan_logodds_cells(ends: torch.Tensor, mask: torch.Tensor,
     return xs, ys, values, valid
 
 
+def scatter_scan_(grid: torch.Tensor, ends: torch.Tensor, mask: torch.Tensor,
+                  cfg: MapConfig, K: int) -> torch.Tensor:
+    """Add one scan's unclipped contributions to grid (width, height),
+    contiguous, in place and return it. ends (R, 4) int32, mask (R,) bool.
+
+    The valid slots are added ray-major with index_add_ on the flattened
+    grid: on the CPU a 1-D index_add_ adds in index order whatever the
+    thread count, so every cell gets its adds in ray order.
+    index_put_(accumulate=True) does not once it runs on several threads.
+    On CUDA tensors neither does: the order there is the GPU's own."""
+    xs, ys, values, valid = scan_logodds_cells(ends, mask, cfg, K)
+    cells = xs[valid].long() * cfg.height + ys[valid].long()
+    grid.view(-1).index_add_(0, cells, values[valid])
+    return grid
+
+
 def build_logodds_scatter(ends: torch.Tensor, masks: torch.Tensor,
                           cfg: MapConfig, K: int,
                           init: torch.Tensor | None = None) -> torch.Tensor:
     """The scatter path: the plain version of the ray-walk kernel.
 
-    ends (N, R, 4) int32, masks (N, R) bool. For each scan in order, the
-    valid slots are scattered ray-major with index_put_(accumulate=True),
-    which applies every cell's adds in ray order, then the grid is clipped.
+    ends (N, R, 4) int32, masks (N, R) bool. For each scan in order,
+    scatter_scan_, then the grid is clipped.
     """
     grid = (torch.zeros((cfg.width, cfg.height), dtype=torch.float32,
                         device=ends.device)
             if init is None else init.to(torch.float32).clone())
     for s in range(ends.shape[0]):
-        xs, ys, values, valid = scan_logodds_cells(ends[s], masks[s], cfg, K)
-        grid.index_put_((xs[valid].long(), ys[valid].long()), values[valid],
-                        accumulate=True)
+        scatter_scan_(grid, ends[s], masks[s], cfg, K)
         grid.clamp_(-cfg.logodds_clip, cfg.logodds_clip)
     return grid
+
+
+def update_map(logodds: torch.Tensor, pose: torch.Tensor,
+               points: torch.Tensor, mask: torch.Tensor, cfg: MapConfig,
+               K: int) -> torch.Tensor:
+    """One scan's map update, IN PLACE: add all ray contributions of the
+    scan at pose (3,), points (R, 2), mask (R,) to logodds (width, height)
+    float32, then clip it (reference modules/ogm.py:149-188). Returns
+    logodds itself. The JAX package returns a new grid; updating the
+    carried grid in place is the port's counterpart of its donated state.
+    raywalk_scan on CUDA tensors, its plain version on CPU tensors."""
+    from ..kernels.raywalk import raywalk_scan
+
+    return raywalk_scan(ray_ends(pose, points, cfg), mask, cfg, K, logodds,
+                        clip=cfg.logodds_clip)
 
 
 def build_logodds(
@@ -155,3 +184,15 @@ def finalize_grid(logodds: torch.Tensor) -> torch.Tensor:
     """Threshold log-odds into the uint8 grid_map (1 marks FREE cells)."""
     pmf = 1.0 / (1.0 + torch.exp(logodds))
     return (pmf > 0.5).to(torch.uint8)
+
+
+def render_logodds(logodds) -> np.ndarray:
+    """Min-max normalize + sqrt gamma -> uint8 grayscale image (reference
+    rendering semantics: modules/ogm.py:66-85), computed in numpy float64
+    on the host."""
+    if isinstance(logodds, torch.Tensor):
+        logodds = logodds.detach().cpu().numpy()
+    lo = np.asarray(logodds, dtype=np.float64)
+    den = lo.max() - lo.min()
+    norm = (lo - lo.min()) / (den if den > 0 else 1.0)
+    return (np.sqrt(norm) * 255.0).astype(np.uint8)

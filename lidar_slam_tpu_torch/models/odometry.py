@@ -40,6 +40,19 @@ def _sinc_half(dtheta: torch.Tensor) -> torch.Tensor:
     return torch.where(small, 1.0 - h * h / 6.0, torch.sin(safe_h) / safe_h)
 
 
+def diff_drive_motion_model(pose_t: torch.Tensor, v_t: torch.Tensor,
+                            w_t: torch.Tensor, dt: float) -> torch.Tensor:
+    """One step of the sinc-corrected diff-drive model, batched over leading
+    dimensions (reference modules/localization.py:15-36). w_t is the gyro
+    3-vector; the yaw rate is its last component."""
+    dtheta = w_t[..., -1] * dt
+    x, y, theta = pose_t[..., 0], pose_t[..., 1], pose_t[..., 2]
+    k = v_t * dt * _sinc_half(dtheta)
+    x = x + k * torch.cos(theta + dtheta / 2.0)
+    y = y + k * torch.sin(theta + dtheta / 2.0)
+    return torch.stack([x, y, theta + dtheta], dim=-1)
+
+
 def poses_from_odometry(
     v_ts: torch.Tensor,
     w_ts: torch.Tensor,

@@ -418,6 +418,23 @@ def optimize(
     return LMResult(poses=x, cost=cost, iterations=it, final_lambda=lam)
 
 
+def optimize_with_config(poses0: torch.Tensor, graph: PoseGraph,
+                         cfg: PoseGraphConfig) -> LMResult:
+    """LM solve with the config's schedule; band = cfg.fixed_interval.
+    Requires cfg.solver == "banded" and cfg.robust_loss == "none" (the
+    other solvers and robust kernels are not yet ported)."""
+    if cfg.solver != "banded":
+        raise NotImplementedError(f"pose-graph solver {cfg.solver!r} is not "
+                                  "yet ported (only 'banded')")
+    if cfg.robust_loss != "none":
+        raise NotImplementedError(f"robust loss {cfg.robust_loss!r} is not "
+                                  "yet ported (only 'none')")
+    return optimize(poses0, graph, max_iters=cfg.max_lm_iters,
+                    lambda_init=cfg.lambda_init, lambda_up=cfg.lambda_up,
+                    lambda_down=cfg.lambda_down, cost_rtol=cfg.cost_rtol,
+                    band=cfg.fixed_interval)
+
+
 def optimize_trajectory(
     poses0: torch.Tensor,
     relative_poses: torch.Tensor,
@@ -427,19 +444,7 @@ def optimize_trajectory(
     loop_mask: torch.Tensor,
     cfg: PoseGraphConfig = PoseGraphConfig(solver="banded"),
 ) -> LMResult:
-    """Graph assembly + LM solve with the config's schedule; band =
-    cfg.fixed_interval. Requires cfg.solver == "banded" and
-    cfg.robust_loss == "none" (the other solvers and robust kernels are
-    not yet ported)."""
-    if cfg.solver != "banded":
-        raise NotImplementedError(f"pose-graph solver {cfg.solver!r} is not "
-                                  "yet ported (only 'banded')")
-    if cfg.robust_loss != "none":
-        raise NotImplementedError(f"robust loss {cfg.robust_loss!r} is not "
-                                  "yet ported (only 'none')")
+    """Graph assembly (prior at the origin) + optimize_with_config."""
     graph = make_graph(relative_poses, cfg, loop_i=loop_i, loop_j=loop_j,
                        loop_meas=loop_meas, loop_mask=loop_mask)
-    return optimize(poses0, graph, max_iters=cfg.max_lm_iters,
-                    lambda_init=cfg.lambda_init, lambda_up=cfg.lambda_up,
-                    lambda_down=cfg.lambda_down, cost_rtol=cfg.cost_rtol,
-                    band=cfg.fixed_interval)
+    return optimize_with_config(poses0, graph, cfg)

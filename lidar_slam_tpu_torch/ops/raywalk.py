@@ -1,4 +1,5 @@
-"""Closed-form per-ray walk descriptors: the ray-walk kernel's contract.
+"""Closed-form per-ray walk descriptors (the ray-walk kernels' contract),
+and the unclipped per-scan delta.
 
 Counterpart of lidar_slam_tpu/ops/raywalk.py::ray_descriptors. A straight
 line enters and leaves the (convex) map rectangle at most once, so a ray's
@@ -16,6 +17,8 @@ from typing import Tuple
 import torch
 
 from ..config import MapConfig
+from ..kernels.raywalk import raywalk_scan
+from ..models.occupancy import ray_ends
 from .bresenham import floordiv
 
 _BIG = 1 << 28
@@ -69,3 +72,21 @@ def ray_descriptors(ends: torch.Tensor, mask: torch.Tensor, cfg: MapConfig,
     to32 = lambda a: a.to(torch.int32)  # noqa: E731
     return tuple(map(to32, (is_steep, sM, sm, sgM, sgm, dM, dm, c,
                             k_in, k_out)))
+
+
+def scan_delta_raywalk(pose: torch.Tensor, points: torch.Tensor,
+                       mask: torch.Tensor, cfg: MapConfig,
+                       K: int) -> torch.Tensor:
+    """One scan's UNCLIPPED log-odds delta (width, height) float32: the sum
+    of its per-ray +/-log4 contributions on a zero grid, in ray order.
+
+    Counterpart of lidar_slam_tpu/ops/raywalk.py::scan_delta_raywalk, the
+    associative per-scan quantity the sharded map paths sum across ray
+    shards before applying the per-scan clip. pose (3,), points (R, 2),
+    mask (R,). raywalk_scan with no clip on CUDA tensors, its plain
+    version on CPU tensors.
+    """
+    grid = torch.zeros((cfg.width, cfg.height), dtype=torch.float32,
+                       device=points.device)
+    return raywalk_scan(ray_ends(pose, points, cfg), mask, cfg, K, grid,
+                        clip=None)

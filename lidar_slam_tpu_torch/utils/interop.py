@@ -21,9 +21,9 @@ def from_numpy(obj, device="cpu", dtype: torch.dtype | None = None):
     and bool arrays keep theirs); numpy scalars become 0-d tensors, Python
     scalars pass through."""
     if isinstance(obj, (np.ndarray, np.generic)):
-        a = np.ascontiguousarray(obj)
-        if not a.flags.writeable:  # e.g. a view of a JAX array
-            a = a.copy()
+        a = np.asarray(obj)  # keeps 0-d arrays 0-d
+        if not (a.flags.c_contiguous and a.flags.writeable):
+            a = np.array(a, order="C")  # e.g. a view of a JAX array
         t = torch.from_numpy(a).to(device)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)

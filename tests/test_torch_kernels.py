@@ -14,9 +14,10 @@ import torch
 
 from lidar_slam_tpu_torch.config import MapConfig
 from lidar_slam_tpu_torch.kernels.nn import nn_argmin
-from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
+from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build, raywalk_scan
 from lidar_slam_tpu_torch.models import occupancy
 from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
+from lidar_slam_tpu_torch.ops.raywalk import scan_delta_raywalk
 
 pytestmark = pytest.mark.cuda
 
@@ -168,3 +169,101 @@ def test_build_logodds_auto_takes_the_kernel(dev):
     exact = occupancy.build_logodds_scatter(ends.cpu(), masks, cfg, k)
     assert torch.equal(got.cpu(), exact)
     assert float((got.cpu() != want).float().mean()) < 0.01
+
+
+# -- raywalk_scan (csrc/raywalk.cu): one scan on a carried grid, in place ----
+
+def _scan_check(dev, ends, mask, cfg, k, init, clip):
+    """The kernel on a GPU copy of init against the plain version on a CPU
+    copy, bit for bit; the kernel writes the grid it was given."""
+    want = raywalk_scan(ends, mask, cfg, k, init.clone(), clip)
+    grid = init.to(dev)
+    ptr = grid.data_ptr()
+    before = raywalk_scan.launches
+    out = raywalk_scan(ends.to(dev), mask.to(dev), cfg, k, grid, clip)
+    torch.cuda.synchronize()
+    assert raywalk_scan.launches == before + 1
+    assert out is grid and grid.data_ptr() == ptr
+    assert torch.equal(grid.cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("clip", [20.0, None])
+@pytest.mark.parametrize("trial", range(4))
+def test_raywalk_scan_bit_exact(dev, trial, clip):
+    """Seeded random geometries, a random carried grid (beyond the clip, so
+    the clip shows), robots inside and outside the map."""
+    rng = np.random.default_rng(200 + trial)
+    res = float(rng.choice([0.05, 0.1, 0.13, 0.25]))
+    ex, ey = rng.uniform(2.0, 12.0, 2)
+    cfg = MapConfig(resolution=res, world_max_x=ex, world_min_x=-ex,
+                    world_max_y=ey, world_min_y=-ey)
+    rmax = float(rng.uniform(0.5, 1.6)) * max(ex, ey)
+    k = occupancy.max_ray_cells(cfg, rmax)
+    poses, pts, masks = _scans(trial, 1, 700, rmax, cfg, trial == 3)
+    ends = occupancy.ray_ends(poses[0], pts[0], cfg)
+    init = torch.as_tensor(rng.uniform(-25, 25, (cfg.width, cfg.height)),
+                           dtype=torch.float32)
+    got = _scan_check(dev, ends, masks[0], cfg, k, init, clip)
+    if clip is not None:
+        assert float(got.abs().max()) == clip
+    else:
+        assert float(got.abs().max()) > 20.0  # nothing clipped
+    assert int((got != init).sum()) > 100
+
+
+def test_raywalk_scan_large_k_masked_and_off_map(dev):
+    cfg = MapConfig(resolution=0.025, world_max_x=10, world_min_x=-10,
+                    world_max_y=10, world_min_y=-10)
+    poses, pts, masks = _scans(9, 1, 300, 19.0, cfg)
+    ends = occupancy.ray_ends(poses[0], pts[0], cfg)
+    init = torch.as_tensor(np.random.default_rng(1).uniform(
+        -20, 20, (cfg.width, cfg.height)), dtype=torch.float32)
+    for clip in (20.0, None):
+        _scan_check(dev, ends, masks[0], cfg, 768, init, clip)
+        # a fully masked scan and a scan whose rays never reach the map
+        # leave the grid as it was, with or without the clip
+        none = torch.zeros_like(masks[0])
+        assert torch.equal(_scan_check(dev, ends, none, cfg, 768, init, clip),
+                           init)
+        far = occupancy.ray_ends(poses[0] + torch.tensor([100.0, 0, 0]),
+                                 pts[0], cfg)
+        assert torch.equal(_scan_check(dev, far, masks[0], cfg, 768, init,
+                                       clip), init)
+
+
+def test_update_map_and_scan_delta_take_the_kernel(dev):
+    cfg = MapConfig(resolution=0.05, world_max_x=30, world_min_x=-30,
+                    world_max_y=30, world_min_y=-30)
+    poses, pts, masks = _scans(4, 1, 1081, 30.0, cfg)
+    pose, pt, m = poses[0].to(dev), pts[0].to(dev), masks[0].to(dev)
+    k = occupancy.max_ray_cells(cfg, 30.0)
+    ends = occupancy.ray_ends(pose, pt, cfg)
+    before = raywalk_scan.launches
+    delta = scan_delta_raywalk(pose, pt, m, cfg, k)
+    grid = torch.zeros((cfg.width, cfg.height), device=dev)
+    out = occupancy.update_map(grid, pose, pt, m, cfg, k)
+    torch.cuda.synchronize()
+    assert raywalk_scan.launches == before + 2 and out is grid
+    zero = torch.zeros((cfg.width, cfg.height))
+    want = occupancy.scatter_scan_(zero.clone(), ends.cpu(), masks[0], cfg,
+                                   k)
+    assert torch.equal(delta.cpu(), want)
+    assert torch.equal(grid.cpu(), want.clamp(-20.0, 20.0))
+    assert float(want.min()) < -20.0  # the delta is unclipped
+
+
+def test_raywalk_scan_rejects_bad_inputs(dev):
+    cfg = MapConfig(resolution=0.5, world_max_x=3, world_min_x=-3,
+                    world_max_y=3, world_min_y=-3)
+    ends = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    grid = torch.zeros((cfg.width, cfg.height), device=dev)
+    with pytest.raises(ValueError, match="grid must be"):
+        raywalk_scan(ends, mask, cfg, 8, grid.double(), None)
+    with pytest.raises(ValueError, match="grid must be"):
+        raywalk_scan(ends, mask, cfg, 8, grid.cpu(), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        raywalk_scan(ends, mask, cfg, 8, grid.t().contiguous().t(), None)
+    with pytest.raises(ValueError, match="ends must be"):
+        raywalk_scan(ends[None], mask, cfg, 8, grid, None)

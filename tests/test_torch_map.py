@@ -18,12 +18,13 @@ from lidar_slam_tpu.models import occupancy as jocc
 from lidar_slam_tpu.ops.bresenham import bresenham_fixed as j_bresenham
 from lidar_slam_tpu.ops.raywalk import build_logodds_raywalk
 from lidar_slam_tpu.ops.raywalk import ray_descriptors as j_descriptors
+from lidar_slam_tpu.ops.raywalk import scan_delta_raywalk as j_scan_delta
 
 from lidar_slam_tpu_torch.config import MapConfig
-from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
+from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build, raywalk_scan
 from lidar_slam_tpu_torch.models import occupancy as tocc
 from lidar_slam_tpu_torch.ops.bresenham import bresenham_fixed
-from lidar_slam_tpu_torch.ops.raywalk import ray_descriptors
+from lidar_slam_tpu_torch.ops.raywalk import ray_descriptors, scan_delta_raywalk
 
 torch.set_num_threads(1)
 
@@ -231,3 +232,79 @@ def test_backend_dispatch_on_cpu():
         tocc.build_logodds(*args, backend="cuda")
     with pytest.raises(ValueError, match="unknown map backend"):
         tocc.build_logodds(*args, backend="raywalk")
+
+
+# -- one scan on a carried grid: update_map / scan_delta (raywalk_scan) ------
+
+def _clip_range_init(seed, cfg):
+    """A random carried grid inside [-clip, clip], as the online map is."""
+    clip = cfg.logodds_clip
+    return np.random.default_rng(seed).uniform(
+        -clip, clip, (cfg.width, cfg.height)).astype(np.float32)
+
+
+def _port_update(grid, pose, pts, mask, cfg, k):
+    g = torch.from_numpy(grid.copy())
+    before = raywalk_scan.launches
+    out = tocc.update_map(g, torch.from_numpy(pose), torch.from_numpy(pts),
+                          torch.from_numpy(mask), cfg, k)
+    assert out is g  # updated in place, no copy
+    assert raywalk_scan.launches == before  # CPU tensors never launch
+    return g.numpy()
+
+
+@pytest.mark.parametrize("scan", [0, 1, 2])  # scan 2 is fully masked
+def test_update_map_matches_jax_v8_on_random_init(scan):
+    """The plain update_map on a random carried grid against the JAX
+    per-scan ray-walk kernel (v8, interpret mode: what online_step runs on
+    the TPU) bit for bit, and against JAX's own update_map within 1e-4:
+    that one adds in ray-LENGTH order (compact scatter), one ULP off any
+    ray-order engine on a non-zero grid (tests/test_online.py:65 bound)."""
+    poses, pts, masks = _adversarial_scans(seed=11, n=3, r=48)
+    init = _clip_range_init(scan, TCFG)
+    pose, pt, m = poses[scan], pts[scan], masks[scan]
+    got = _port_update(init, pose, pt, m, TCFG, K)
+    want = _jax_map(pose[None], pt[None], m[None], JCFG, K, init=init,
+                    version=8)
+    np.testing.assert_array_equal(got, want)
+    jupd = np.asarray(jocc.update_map(jnp.asarray(init), jnp.asarray(pose),
+                                      jnp.asarray(pt), jnp.asarray(m), JCFG,
+                                      K))
+    np.testing.assert_allclose(got, jupd, rtol=0, atol=1e-4)
+    assert ((got != init).sum() > 100) == (scan != 2)
+
+
+def test_update_map_large_k_matches_jax_v1():
+    """K = 768: the JAX package runs its v1 kernel there."""
+    geom = dict(resolution=0.025, world_max_x=10, world_min_x=-10,
+                world_max_y=10, world_min_y=-10)
+    tcfg, jcfg = MapConfig(**geom), JMapConfig(**geom)
+    rng = np.random.default_rng(13)
+    r = 48
+    ang = rng.uniform(-np.pi, np.pi, r)
+    dist = rng.uniform(1.0, 19.0, r)
+    pts = np.stack([dist * np.cos(ang), dist * np.sin(ang)],
+                   axis=-1).astype(np.float32)
+    mask = rng.random(r) > 0.1
+    pose = rng.normal(0, 0.5, 3).astype(np.float32)
+    init = _clip_range_init(13, tcfg)
+    got = _port_update(init, pose, pts, mask, tcfg, 768)
+    want = _jax_map(pose[None], pts[None], mask[None], jcfg, 768, init=init,
+                    version=1)
+    np.testing.assert_array_equal(got, want)
+    assert (got != init).sum() > 1000
+
+
+@pytest.mark.parametrize("scan", [0, 1])
+def test_scan_delta_matches_jax_v8(scan):
+    """The unclipped per-scan delta on a zero grid, bit for bit against JAX
+    scan_delta_raywalk (v8, interpret mode). Near the robot many rays cross
+    the same cells, so the delta goes past the clip: nothing clipped it."""
+    poses, pts, masks = _adversarial_scans(seed=12, n=3, r=48)
+    args = (poses[scan], pts[scan], masks[scan])
+    want = np.asarray(j_scan_delta(*map(jnp.asarray, args), JCFG, K,
+                                   interpret=True, version=8))
+    got = scan_delta_raywalk(*map(torch.from_numpy, args), TCFG, K)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.min() < -TCFG.logodds_clip

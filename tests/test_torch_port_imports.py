@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX on import, and its numpy copies of
-the JAX package's config, sensor and IO code give identical values."""
+"""The PyTorch port stands alone: no JAX on import, its numpy copies of
+the JAX package's config, sensor and IO code give identical values, and its
+kernel build is keyed on every file of its CUDA sources."""
 
 import dataclasses
 import os
@@ -50,6 +51,48 @@ def test_port_imports_without_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20  # every port module was imported
+
+
+_IMPORT_ONLINE = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import lidar_slam_tpu_torch.models.online  # noqa: F401
+import lidar_slam_tpu_torch.online_slam  # noqa: F401
+print("jax" in sys.modules)
+"""
+
+
+def test_online_modules_import_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONLINE, ROOT],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
+def test_library_path_hashes_every_csrc_file(tmp_path, monkeypatch):
+    """An added or edited header (.cuh) changes the library name, so a
+    stale build is never reused; the nvcc sources stay the .cu files."""
+    import shutil
+
+    from lidar_slam_tpu_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    base = build.library_path()
+    assert base.parent == build.BUILD_DIR
+    assert base.name.startswith("libslamkernels_")
+    header = csrc / "common.cuh"
+    header.write_text("#pragma once\nconstexpr int kTile = 64;\n")
+    added = build.library_path()
+    header.write_text("#pragma once\nconstexpr int kTile = 32;\n")
+    edited = build.library_path()
+    assert len({base, added, edited}) == 3
+    assert [p.suffix for p in build.sources()] == [".cu"] * 2
+    header.unlink()
+    assert build.library_path() == base
 
 
 def _dataclasses(mod):
@@ -150,14 +193,17 @@ def test_interop_round_trip_keeps_dtypes():
              "masks": rng.random((5, 8)) > 0.5,
              "idx": np.arange(4, dtype=np.int32),
              "grid": np.zeros((3, 4), np.float32),
+             "step": np.asarray(7, np.int32),
              "scalar": 1.5}
     t = interop.from_numpy(state)
     assert t["poses"].dtype == torch.float64
+    assert t["step"].shape == () and t["step"].dtype == torch.int32
+    assert interop.from_numpy(np.float32(2.5)).shape == ()
     assert t["masks"].dtype == torch.bool
     assert t["idx"].dtype == torch.int32
     assert t["grid"].dtype == torch.float32
     back = interop.to_numpy(t)
-    for k in ("poses", "masks", "idx", "grid"):
+    for k in ("poses", "masks", "idx", "grid", "step"):
         np.testing.assert_array_equal(back[k], state[k])
         assert back[k].dtype == state[k].dtype
     assert back["scalar"] == 1.5
