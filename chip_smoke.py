@@ -36,11 +36,22 @@ first failure and catches nothing):
      raywalk_build over the stream's own poses (bit-exact) and the
      relative poses against poses_from_scan_matching;
   9. a small stream on the GPU and on the CPU must agree, and a checkpoint
-     saved mid-stream and resumed on the GPU must continue bit for bit.
+     saved mid-stream and resumed on the GPU must continue bit for bit;
+ 10. the probe kernels P1-P9 (csrc/probes.cu) against their plain versions
+     on CPU copies, bit-exact, at the JAX probe tools' sizes (P9's six
+     modes at the tool's 16,384-pair word table, one repetition); timed in
+     turns with the library call where one computes the same function
+     (P9 at a reduced 64 pairs x 2 repetitions, as its plain version loops
+     in Python); then, with the launch counters reset, the port's three
+     probe tools (lidar_slam_tpu_torch/tools: pallas_probe,
+     scatter_microbench, vpu_probe) at the JAX tools' sizes and counts.
 
 The last three lines are the card's `name, power.limit`, a JSON object with
-each kernel's launch count on the main paths ([5] and [8]), its error
-against its plain version and both times, and {"ok": true, "device": {...}}.
+each kernel's launch count on its path ([5] and [8] for K1, K2 and K4; the
+tools' run in [10] for P1-P9), its error against its plain version, its,
+the plain version's and the library call's times, and its bound (the
+larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
+the H100's published HBM and FP32 rates), and {"ok": true, "device": ...}.
 """
 
 import json
@@ -48,6 +59,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -58,6 +70,8 @@ SMALL_POSE_TOL = 1e-3  # GPU vs CPU poses on the small log (m, rad)
 SMALL_GRID_TOL = 0.01  # fraction of grid_map cells allowed to differ
 REL_TOL = 2e-4  # online vs offline relative poses (tests/test_online.py:47)
 REL_MAX_SHARE = 0.01  # share of steps allowed past REL_TOL (NN near-ties)
+HBM_BYTES_S = 3.35e12  # H100 SXM HBM3, published
+FP32_OPS_S = 67e12  # H100 SXM FP32 outside the tensor cores, published
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -80,9 +94,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move nbytes and do ops FP32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def turns(plain, kernel, library, reps: int, plain_reps: int | None = None):
+    """Kernel, plain and library ms (library None without one), timed in
+    turns plain, kernel, library, library, kernel, plain; each the mean of
+    its two turns."""
+    plain_reps = plain_reps or reps
+    t_p = [cuda_ms(plain, plain_reps)]
+    t_k = [cuda_ms(kernel, reps)]
+    t_l = [cuda_ms(library, reps) for _ in range(2)] if library else [None]
+    t_k.append(cuda_ms(kernel, reps))
+    t_p.append(cuda_ms(plain, plain_reps))
+    return (sum(t_k) / 2, sum(t_p) / 2,
+            None if library is None else sum(t_l) / 2)
+
+
 def nn_check(s, t, tm, reps: int):
     """nn_argmin against its plain version on (s, t, tm): index-flip
-    share, max chosen-distance gap, kernel ms and plain ms."""
+    share, max chosen-distance gap, kernel, plain and library ms (the
+    library: torch.cdist + argmin with the masked targets moved far out of
+    range), and the bound."""
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
 
@@ -95,13 +132,28 @@ def nn_check(s, t, tm, reps: int):
     flips = float((idx_k != idx_p).float().mean())
     gap = float(((s - matched_k) ** 2).sum(-1).sub(
         ((s - matched_p) ** 2).sum(-1)).abs().max())
-    ms = cuda_ms(lambda: nn_argmin(s, t, tm), reps)
-    plain_ms = cuda_ms(
-        lambda: gather_points(t, nearest_neighbors(s, t, tm)), reps)
+    far = torch.where(tm[..., None], t, torch.full_like(t, 1e6))
+    ms, plain_ms, lib_ms = turns(
+        lambda: gather_points(t, nearest_neighbors(s, t, tm)),
+        lambda: nn_argmin(s, t, tm),
+        lambda: torch.cdist(s, far).argmin(-1), reps)
     if flips > NN_MAX_FLIP_FRACTION or gap > NN_MAX_GAP:
         fail(f"nn_argmin disagrees with its plain version (flips {flips}, "
              f"gap {gap})")
-    return flips, gap, ms, plain_ms
+    B, N, D = s.shape
+    # 6 operations a (source, target) pair; inputs once, idx and matched out
+    nbytes = 4 * (s.numel() + t.numel()) + tm.numel() + 4 * B * N * (1 + D)
+    return flips, gap, ms, plain_ms, lib_ms, bound(nbytes,
+                                                   6 * B * N * t.shape[1])
+
+
+def visits(ends, masks, cfg, K) -> int:
+    """Cells the ray walk visits: the in-map slot intervals of the valid
+    rays (ops/raywalk.ray_descriptors)."""
+    from lidar_slam_tpu_torch.ops.raywalk import ray_descriptors
+
+    k_in, k_out = ray_descriptors(ends, masks, cfg, K)[-2:]
+    return int((k_out - k_in + 1).clamp(min=0).sum())
 
 
 def synced(data, sensors):
@@ -111,6 +163,176 @@ def synced(data, sensors):
     sensors.synchronize_sensors(enc, imu, lid, base_sensor_index=0)
     return (enc.counts_synced, imu.gyro_synced, lid.ranges_synced,
             float(lid.range_min), float(lid.range_max))
+
+
+P9_TIME_PAIRS, P9_TIME_REPS = 64, 2  # the plain version loops in Python
+
+
+class ProbeCase(NamedTuple):
+    """One probe comparison. check() returns (kernel output, plain version
+    on CPU copies), the exactness check; kernel(), plain() and library()
+    (one PyTorch call that computes the same function) are timed on the
+    card; bytes count each input read and each output written once, ops
+    the float adds, or for a masked tile the one test per tile cell that
+    the mask needs."""
+    fn: Callable
+    label: str
+    check: Callable
+    kernel: Callable
+    plain: Callable
+    library: Callable
+    nbytes: int
+    ops: int
+    reps: int
+
+
+def probe_cases(dev) -> list:
+    """Every probe comparison, at the JAX probe tools' sizes. The library
+    of the probes that add into a zero grid (P1-P4, P7, P8) is one
+    index_add_ of their adds at precomputed flat cell indices; P9's is the
+    same on its carried grid."""
+    from lidar_slam_tpu_torch.kernels import probes
+    from lidar_slam_tpu_torch.tools import (pallas_probe, scatter_microbench,
+                                            vpu_probe)
+
+    def adds_library(fn, g):
+        flat, vals = probes.adds(fn, *g)
+        return lambda: scatter_microbench.index_add(flat, vals, fn.shape)
+
+    def case(fn, label, g, c, library, nbytes, ops, reps):
+        return ProbeCase(fn, label, lambda: (fn(*g), fn(*c)),
+                         lambda: fn(*g), lambda: fn.plain(*g), library,
+                         nbytes, ops, reps)
+
+    cases = []
+    for name, fn in pallas_probe.KERNELS.items():
+        arrays = pallas_probe.inputs(name)
+        g = [torch.as_tensor(a, device=dev) for a in arrays] or [dev]
+        c = [torch.as_tensor(a) for a in arrays] or ["cpu"]
+        n = len(arrays[0]) if arrays else 0
+        out_n = 1 if fn is probes.scalar_sum else int(np.prod(
+            probes.GRID_SHAPE if fn is probes.full_grid
+            else probes.PROBE_SHAPE))
+        ops = {probes.masked_tile: n, probes.scalar_sum: n,
+               probes.full_grid: 0}.get(fn, n * probes.TS * probes.LANES)
+        library = {probes.scalar_sum: lambda g=g: g[0].sum(),
+                   probes.full_grid: lambda: torch.ones(
+                       probes.GRID_SHAPE, device=dev)}.get(fn)
+        cases.append(case(fn, name, g, c, library or adds_library(fn, g),
+                          sum(a.nbytes for a in arrays) + 4 * out_n, ops, 50))
+    u = scatter_microbench.UPDATES[0]
+    arrays = scatter_microbench.make_updates(u, 0)
+    g = [torch.as_tensor(a, device=dev) for a in arrays]
+    grid_bytes = 4 * int(np.prod(probes.GRID_SHAPE))
+    cases.append(case(probes.tile_rmw, f"tile_rmw u={u}", g,
+                      [torch.as_tensor(a) for a in arrays],
+                      adds_library(probes.tile_rmw, g), 12 * u + grid_bytes,
+                      u, 20))
+    nseg = scatter_microbench.SEGMENTS[0]
+    arrays = scatter_microbench.seg_args(nseg, 0)
+    g = [torch.as_tensor(a, device=dev) for a in arrays]
+    cases.append(case(probes.segment_rmw, f"segment_rmw n={nseg}", g,
+                      [torch.as_tensor(a) for a in arrays],
+                      adds_library(probes.segment_rmw, g),
+                      16 * nseg + grid_bytes,
+                      nseg * probes.TS * probes.LANES, 20))
+
+    # P9: checked at the tool's word table (m1 pairs, one repetition: the
+    # fullv staging rounds and the 4,096-column ray table wrapping); timed
+    # at a reduced pair count, as its plain version loops in Python
+    m1, n_p, reps = vpu_probe.M1, P9_TIME_PAIRS, P9_TIME_REPS
+    shape = (vpu_probe.GRID, vpu_probe.GRID)
+    grid = torch.as_tensor(np.random.default_rng(1).normal(0, 1, shape),
+                           dtype=torch.float32)
+    g_dev = grid.to(dev)
+    for mode in probes.VPU_MODES:
+        rays = mode in ("ray1", "ray2")
+        big = torch.from_numpy(vpu_probe.words_for(m1, 12, rays=rays))
+        words = torch.from_numpy(vpu_probe.words_for(n_p, 11, rays=rays))
+        w_g, big_g = words.to(dev), big.to(dev)
+        adds = list(probes.vpu_adds(words, n_p, mode, shape)) * reps
+        flat = torch.cat([f for f, _ in adds]).to(dev)
+        vals = torch.cat([v for _, v in adds]).to(dev)
+        visits_per_iter = 1 if mode == "ray1" else 2
+        cases.append(ProbeCase(
+            probes.vpu_loop,
+            f"vpu_loop {mode} (checked at {m1} pairs x 1, timed at {n_p} "
+            f"pairs x {reps})",
+            lambda b=big_g, bc=big, m=mode: (
+                probes.vpu_loop(b, g_dev.clone(), m1, m, 1),
+                probes.vpu_loop(bc, grid.clone(), m1, m, 1)),
+            lambda w=w_g, m=mode: probes.vpu_loop(w, g_dev.clone(), n_p, m,
+                                                  reps),
+            lambda w=w_g, m=mode: probes.vpu_loop_plain(w, g_dev.clone(),
+                                                        n_p, m, reps),
+            lambda f=flat, v=vals: g_dev.clone().view(-1).index_add_(0, f, v),
+            words.numel() * 4 + 2 * grid.numel() * 4,
+            reps * n_p * visits_per_iter * probes.VPU_TS * probes.LANES, 5))
+    return cases
+
+
+def probe_phase(dev) -> list:
+    """[10]: each probe kernel against its plain version, bit-exact, timed
+    in turns; then the three probe tools with the launch counters reset.
+    Returns the probes' rows of the kernels line."""
+    from lidar_slam_tpu_torch.kernels import probes
+    from lidar_slam_tpu_torch.tools import (pallas_probe, scatter_microbench,
+                                            vpu_probe)
+
+    rows = {}
+    for c in probe_cases(dev):
+        got, want = c.check()
+        torch.cuda.synchronize()
+        err = float((got.cpu() - want).abs().max())
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            fail(f"{c.label} differs from its plain version (max |diff| "
+                 f"{err})")
+        ms, plain_ms, lib_ms = turns(c.plain, c.kernel, c.library, c.reps,
+                                     1 if c.fn is probes.vpu_loop else None)
+        b_ms, b_by = bound(c.nbytes, c.ops)
+        k = c.kernel()
+        lib_err = float((c.library().reshape(k.shape) - k).abs().max())
+        print(f"[10] {c.label} vs plain: bit-exact; kernel {ms:.4f} ms, "
+              f"plain on the GPU {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+              f"(max |diff| to the kernel {lib_err}); bound {b_ms:.6f} ms "
+              f"({b_by})", flush=True)
+        # one row a kernel: P9's times are its `full` mode's, its error
+        # the largest of the six modes
+        row = rows.setdefault(c.fn, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if "ms" not in row or c.label.startswith("vpu_loop full "):
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms)
+
+    for fn in probes.WRAPPERS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    log = lambda m: print(f"[10] {m}", flush=True)  # noqa: E731
+    pallas_probe.run(log)
+    scatter_microbench.run(log)
+    vpu_probe.run(log=log)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in probes.WRAPPERS}
+    print(f"[10] probe tools at the JAX tools' sizes: "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    if min(launches.values()) == 0:
+        fail(f"a probe kernel was not launched by the tools: {launches}")
+
+    lines = {"smem_stream": "pallas_probe.py:38",
+             "dynamic_store": "pallas_probe.py:64",
+             "dynamic_lane_store": "pallas_probe.py:92",
+             "masked_tile": "pallas_probe.py:122",
+             "scalar_sum": "pallas_probe.py:159",
+             "full_grid": "pallas_probe.py:176",
+             "tile_rmw": "scatter_microbench.py:71",
+             "segment_rmw": "scatter_microbench.py:115",
+             "vpu_loop": "vpu_probe.py:76"}
+    return [{"name": fn.__name__, "route": "cuda",
+             "source": "lidar_slam_tpu_torch/csrc/probes.cu",
+             "replaces": f"tools/{lines[fn.__name__]}",
+             "launches": fn.launches, **row} for fn, row in rows.items()]
 
 
 def main() -> int:
@@ -155,11 +377,13 @@ def main() -> int:
                                device=dev)
     pts20, masks20 = scan_ops.scans_to_points(ranges20, 0.1, 30.0, cfg.lidar)
     pts3 = icp_ops.lift_to_3d(pts20)
-    flips, gap, nn_ms, nn_plain_ms = nn_check(pts3[1:65], pts3[:64],
-                                              masks20[:64], 50)
+    flips, gap, nn_ms, nn_plain_ms, nn_lib_ms, nn_bound = nn_check(
+        pts3[1:65], pts3[:64], masks20[:64], 50)
     print(f"[3] nn_argmin vs plain, 64 x 1081 x 1081: index flips "
           f"{flips:.5f}, max chosen-distance gap {gap:.3e}; kernel "
-          f"{nn_ms:.4f} ms, plain {nn_plain_ms:.4f} ms", flush=True)
+          f"{nn_ms:.4f} ms, plain {nn_plain_ms:.4f} ms, torch.cdist + argmin "
+          f"{nn_lib_ms:.4f} ms; bound {nn_bound[0]:.5f} ms "
+          f"({nn_bound[1]})", flush=True)
 
     # 4. raywalk_build vs plain on 32 scans
     K20 = occupancy.adaptive_ray_cells(pts20, masks20, cfg.map, 30.0)
@@ -229,10 +453,15 @@ def main() -> int:
     rw_ms = cuda_ms(lambda: raywalk_build(ends_main, masks21, cfg.map, K), 3)
     rw_plain_ms = cuda_ms(lambda: occupancy.build_logodds_scatter(
         ends_main, masks21, cfg.map, K), 1)
+    # ray ends and masks read once, the grid written once; one add a visit
+    rw_visits = visits(ends_main, masks21, cfg.map, K)
+    rw_bound = bound(4 * ends_main.numel() + masks21.numel()
+                     + 4 * cfg.map.width * cfg.map.height, rw_visits)
     print(f"[5] main-path map (4956 scans, K={K}) vs plain (CPU scatter): "
           f"max |diff| {diff_main}, finalize_grid equal {same_grid}; "
           f"raywalk_build {rw_ms:.3f} ms, plain scatter path on the GPU "
-          f"{rw_plain_ms:.3f} ms", flush=True)
+          f"{rw_plain_ms:.3f} ms; {rw_visits} visits, bound "
+          f"{rw_bound[0]:.5f} ms ({rw_bound[1]})", flush=True)
     if diff_main != 0.0 or not same_grid:
         fail("the main path's map disagrees with the scatter path")
 
@@ -298,16 +527,22 @@ def main() -> int:
     delta_ms = cuda_ms(lambda: scan_delta_raywalk(podo[200], pts21[200],
                                                   masks21[200], m_on, K_on),
                        100)
+    # the grid read and written once (the clip covers it), the scan's ends
+    # and mask read once; one add a visit
+    scan_bound = bound(8 * m_on.width * m_on.height + 17 * e_t.shape[0],
+                       visits(e_t, m_t, m_on, K_on))
     pts3_21 = icp_ops.lift_to_3d(pts21)
-    flips1, gap1, nn1_ms, nn1_plain_ms = nn_check(
+    flips1, gap1, nn1_ms, nn1_plain_ms, nn1_lib_ms, nn1_bound = nn_check(
         pts3_21[101:102], pts3_21[100:101], masks21[100:101], 200)
     print(f"[7] per scan (CUDA events, 100 launches, kernel-plain turns "
           f"{t_plain[0]:.4f}/{t_k[0]:.4f}/{t_k[1]:.4f}/{t_plain[1]:.4f} ms):"
           f" raywalk_scan {scan_ms:.4f} ms, plain scatter + clamp on the GPU"
           f" {scan_plain_ms:.4f} ms; scan_delta (zero grid + unclipped walk)"
-          f" {delta_ms:.4f} ms; nn_argmin B=1 1x1081x1081: flips "
+          f" {delta_ms:.4f} ms; bound {scan_bound[0]:.5f} ms "
+          f"({scan_bound[1]}); nn_argmin B=1 1x1081x1081: flips "
           f"{flips1:.5f}, gap {gap1:.3e}, kernel {nn1_ms:.4f} ms, plain "
-          f"{nn1_plain_ms:.4f} ms", flush=True)
+          f"{nn1_plain_ms:.4f} ms, torch.cdist + argmin {nn1_lib_ms:.4f} ms, "
+          f"bound {nn1_bound[0]:.5f} ms ({nn1_bound[1]})", flush=True)
 
     # 8. the online (serving) path at dataset-20 width
     max_d, max_y = (float(v) for v in odometry.max_step_gates(
@@ -421,6 +656,8 @@ def main() -> int:
     if not same_resume:
         fail("the resumed GPU stream differs from the uninterrupted one")
 
+    probe_rows = probe_phase(dev)
+
     print(card)
     # launches: the main paths' runs, gtsam [5] plus online [8]
     print(json.dumps({"kernels": [
@@ -429,20 +666,26 @@ def main() -> int:
          "replaces": "lidar_slam_tpu/ops/pallas_nn.py:64",
          "launches": launches["nn_argmin"] + launches_on["nn_argmin"],
          "max_abs_err": max(gap, gap1), "ms": nn_ms,
-         "plain_ms": nn_plain_ms},
+         "plain_ms": nn_plain_ms, "bound_ms": nn_bound[0],
+         "bound_by": nn_bound[1], "library_ms": nn_lib_ms},
+        # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
          "replaces": "lidar_slam_tpu/ops/raywalk.py:608",
          "launches": launches["raywalk_build"]
          + launches_on["raywalk_build"],
          "max_abs_err": max(diff, diff_main, diff_k1),
-         "ms": rw_ms, "plain_ms": rw_plain_ms},
+         "ms": rw_ms, "plain_ms": rw_plain_ms, "bound_ms": rw_bound[0],
+         "bound_by": rw_bound[1], "library_ms": None},
         {"name": "raywalk_scan", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
          "replaces": "lidar_slam_tpu/ops/raywalk.py:461",
          "launches": launches_on["raywalk_scan"],
          "max_abs_err": max(diff_scan, diff_delta, diff_k1),
-         "ms": scan_ms, "plain_ms": scan_plain_ms},
+         "ms": scan_ms, "plain_ms": scan_plain_ms,
+         "bound_ms": scan_bound[0], "bound_by": scan_bound[1],
+         "library_ms": None},
+        *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

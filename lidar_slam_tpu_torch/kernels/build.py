@@ -1,10 +1,14 @@
 """Build the CUDA kernels in csrc/ with nvcc and load them with ctypes.
 
 All csrc/*.cu sources compile into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds):
+interface (no PyTorch headers, so a build takes seconds). Every source
+compiles in its own nvcc process, all started together, and one more links
+the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libslamkernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <tmp>/<name>.o   # each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/kernels/libslamkernels_<hash>.so <tmp>/*.o
 
 The library is written under build/kernels/ at the repository root at
 first use, named by a hash of the flags and of every file under csrc/
@@ -21,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -28,8 +33,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared",
-                           "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 
 def sources() -> list[Path]:
@@ -56,6 +60,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libslamkernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_all(cmds: list[list[str]]) -> None:
+    """Run the nvcc commands at once; raise with the output of the first
+    that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 @functools.lru_cache(maxsize=1)
 def build() -> tuple[Path, float]:
     """Compile the library if it is not built yet. Returns (path, seconds
@@ -64,16 +81,17 @@ def build() -> tuple[Path, float]:
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                   for src, obj in zip(sources(), objs)])
+        lib = Path(tmp) / out.name
+        _nvcc_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+                    *map(str, objs)]])
+        os.replace(lib, out)
+    return out, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=1)
@@ -82,10 +100,25 @@ def library() -> ctypes.CDLL:
     declared (pointers and the stream as c_void_p, sizes as c_int)."""
     lib = ctypes.CDLL(str(build()[0]))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64 = ctypes.c_longlong
     lib.slam_nn_argmin.argtypes = [p, p, p, i, i, i, i, p, p, p]
     lib.slam_nn_argmin.restype = i
     lib.slam_raywalk_build.argtypes = [p, p, i, i, i, i, i, f, f, p, p]
     lib.slam_raywalk_build.restype = i
     lib.slam_raywalk_scan.argtypes = [p, p, i, i, i, i, f, f, i, p, p]
     lib.slam_raywalk_scan.restype = i
+    probes = {  # csrc/probes.cu, P1-P9
+        "slam_probe_smem_stream": [p, i, p, i, i, p],
+        "slam_probe_dynamic_store": [p, i, p, i, i, p],
+        "slam_probe_dynamic_lane_store": [p, p, i, p, i, i, p],
+        "slam_probe_masked_tile": [p, p, i, f, p, i, i, p],
+        "slam_probe_scalar_sum": [p, i, p, p],
+        "slam_probe_fill": [p, i64, f, p],
+        "slam_probe_tile_rmw": [p, p, p, i, p, i, i, p],
+        "slam_probe_segment_rmw": [p, p, p, p, i, f, p, i, i, p],
+        "slam_probe_vpu_loop": [p, i, i, i, i, f, p, i, i, p],
+    }
+    for name, argtypes in probes.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i
     return lib

@@ -1,0 +1,455 @@
+"""Wrappers of the Hopper probe kernels P1-P9 (csrc/probes.cu), each with
+its plain PyTorch version in this module.
+
+The probes are the port's counterparts of the Pallas kernels in the JAX
+package's probe tools (tools/pallas_probe.py P1-P6, scatter_microbench.py
+P7-P8, vpu_probe.py P9); lidar_slam_tpu_torch/tools/ times them. Each
+wrapper launches its kernel for CUDA tensors and runs its plain version
+for CPU tensors. There is no fallback from a CUDA tensor to the plain
+version: a build or launch failure raises.
+
+Shared semantics: every probe adds in a fixed order (update, segment or
+emit order) into a float32 grid, so kernel and plain version agree bit for
+bit. The plain versions add through a 1-D index_add_, which on the CPU adds
+in index order whatever the thread count, or loop in order. Cells outside
+the grid are dropped.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+PROBE_SHAPE = (64, 256)  # P1-P4 output (tools/pallas_probe.py W, H)
+GRID_SHAPE = (1208, 1216)  # P6-P8: the padded 1201 x 1201 map grid
+LOG4 = 1.386  # the log-odds step the probes add (rounded to float32)
+TS, LANES = 8, 128  # the TPU tile of P1-P4, P7, P8
+VPU_TS = 64  # P9's (64, 128) tile
+VPU_MODES = ("rmw", "vec", "full", "fullv", "ray1", "ray2")
+RAY_W_MAX = 4096  # ray modes index the word table at i & (ray_w - 1)
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int,
+           device: torch.device) -> None:
+    if t.dtype != dtype or t.dim() != dim or t.device != device:
+        raise ValueError(f"{name} must be a {dim}-D {dtype} tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} "
+                         f"{t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_pairs(xs: torch.Tensor, ys: torch.Tensor) -> None:
+    _check("xs", xs, torch.int32, 1, xs.device)
+    _check("ys", ys, torch.int32, 1, xs.device)
+    if len(xs) != len(ys):
+        raise ValueError("xs and ys must have one length")
+
+
+def _launch(wrapper, entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point on the current stream of `device`; count the
+    launch on `wrapper` and raise if it was refused."""
+    lib = build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+        wrapper.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+
+
+def _flat_adds(shape, rows: torch.Tensor, cols: torch.Tensor, vals):
+    """(flat, vals) of the adds grid[rows[i], cols[i]] += vals[i], in
+    flattened order, cells outside a grid of `shape` dropped; vals may be a
+    Python float."""
+    W, H = shape
+    rows, cols = rows.reshape(-1).long(), cols.reshape(-1).long()
+    vals = torch.as_tensor(vals, dtype=torch.float32, device=rows.device)
+    vals = vals.expand(rows.shape) if vals.dim() == 0 else vals.reshape(-1)
+    ok = (rows >= 0) & (rows < W) & (cols >= 0) & (cols < H)
+    return (rows * H + cols)[ok], vals[ok]
+
+
+def _add_in_order(grid: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                  vals) -> torch.Tensor:
+    """grid[rows[i], cols[i]] += vals[i] for i in flattened order, cells
+    outside the grid dropped; vals may be a Python float."""
+    grid.view(-1).index_add_(0, *_flat_adds(grid.shape, rows, cols, vals))
+    return grid
+
+
+def adds(wrapper, *args):
+    """(flat, vals): the flat cell index and value of every add that probe
+    `wrapper` (P1-P4, P7, P8) makes into its zero grid on `args`, in
+    order. One index_add_ of them into a zero grid of wrapper.shape
+    computes the probe (the adds' order aside)."""
+    return _flat_adds(wrapper.shape, *wrapper.cells(*args))
+
+
+def _tile_iota(device, rows: int = TS):
+    s = torch.arange(rows, dtype=torch.int32, device=device)[:, None]
+    l = torch.arange(LANES, dtype=torch.int32, device=device)[None, :]
+    return s.expand(rows, LANES), l.expand(rows, LANES)
+
+
+def _zeros(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+# -- P1-P4 (tools/pallas_probe.py v1-v4): one block, output PROBE_SHAPE ----
+
+def smem_stream_cells(xs: torch.Tensor):
+    s, l = _tile_iota(xs.device)
+    n = xs.shape[0]
+    return (s.expand(n, TS, LANES), l.expand(n, TS, LANES),
+            xs[:, None, None].expand(n, TS, LANES))
+
+
+def smem_stream_plain(xs: torch.Tensor) -> torch.Tensor:
+    return _add_in_order(_zeros(PROBE_SHAPE, xs.device),
+                         *smem_stream_cells(xs))
+
+
+def smem_stream(xs: torch.Tensor) -> torch.Tensor:
+    """P1: a zero (64, 256) grid whose static tile [0, 8) x [0, 128) gets
+    xs[i] added for every i in order. xs (n,) float32."""
+    if not xs.is_cuda:
+        return smem_stream_plain(xs)
+    _check("xs", xs, torch.float32, 1, xs.device)
+    out = torch.empty(PROBE_SHAPE, dtype=torch.float32, device=xs.device)
+    _launch(smem_stream, "slam_probe_smem_stream", xs.device, xs.data_ptr(),
+            xs.shape[0], out.data_ptr(), *PROBE_SHAPE)
+    return out
+
+
+smem_stream.launches = 0
+smem_stream.plain = smem_stream_plain
+smem_stream.cells = smem_stream_cells
+smem_stream.shape = PROBE_SHAPE
+
+
+def dynamic_store_cells(xs: torch.Tensor):
+    s, l = _tile_iota(xs.device)
+    x8 = (xs // TS * TS)[:, None, None]
+    return x8 + s, l.expand(xs.shape[0], TS, LANES), 1.0
+
+
+def dynamic_store_plain(xs: torch.Tensor) -> torch.Tensor:
+    return _add_in_order(_zeros(PROBE_SHAPE, xs.device),
+                         *dynamic_store_cells(xs))
+
+
+def dynamic_store(xs: torch.Tensor) -> torch.Tensor:
+    """P2: rows [x8, x8 + 8) x lanes [0, 128) += 1 for every x in order,
+    x8 = floor(x / 8) * 8. xs (n,) int32."""
+    if not xs.is_cuda:
+        return dynamic_store_plain(xs)
+    _check("xs", xs, torch.int32, 1, xs.device)
+    out = torch.empty(PROBE_SHAPE, dtype=torch.float32, device=xs.device)
+    _launch(dynamic_store, "slam_probe_dynamic_store", xs.device,
+            xs.data_ptr(), xs.shape[0], out.data_ptr(), *PROBE_SHAPE)
+    return out
+
+
+dynamic_store.launches = 0
+dynamic_store.plain = dynamic_store_plain
+dynamic_store.cells = dynamic_store_cells
+dynamic_store.shape = PROBE_SHAPE
+
+
+def dynamic_lane_store_cells(xs: torch.Tensor, ys: torch.Tensor):
+    s, l = _tile_iota(xs.device)
+    x8 = (xs // TS * TS)[:, None, None]
+    yl = (ys // LANES * LANES)[:, None, None]
+    return x8 + s, yl + l, 1.0
+
+
+def dynamic_lane_store_plain(xs: torch.Tensor,
+                             ys: torch.Tensor) -> torch.Tensor:
+    return _add_in_order(_zeros(PROBE_SHAPE, xs.device),
+                         *dynamic_lane_store_cells(xs, ys))
+
+
+def dynamic_lane_store(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """P3: as P2 on the tile at lane offset yl = floor(y / 128) * 128.
+    xs, ys (n,) int32."""
+    if not xs.is_cuda:
+        return dynamic_lane_store_plain(xs, ys)
+    _check_pairs(xs, ys)
+    out = torch.empty(PROBE_SHAPE, dtype=torch.float32, device=xs.device)
+    _launch(dynamic_lane_store, "slam_probe_dynamic_lane_store", xs.device,
+            xs.data_ptr(), ys.data_ptr(), len(xs), out.data_ptr(),
+            *PROBE_SHAPE)
+    return out
+
+
+dynamic_lane_store.launches = 0
+dynamic_lane_store.plain = dynamic_lane_store_plain
+dynamic_lane_store.cells = dynamic_lane_store_cells
+dynamic_lane_store.shape = PROBE_SHAPE
+
+
+def masked_tile_cells(xs: torch.Tensor, ys: torch.Tensor):
+    return xs, ys, -LOG4
+
+
+def masked_tile_plain(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    return _add_in_order(_zeros(PROBE_SHAPE, xs.device),
+                         *masked_tile_cells(xs, ys))
+
+
+def masked_tile(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """P4: cell (x, y) += -1.386 for every (x, y) in order (the TPU did it
+    as a masked (8, 128) tile RMW). xs, ys (n,) int32."""
+    if not xs.is_cuda:
+        return masked_tile_plain(xs, ys)
+    _check_pairs(xs, ys)
+    out = torch.empty(PROBE_SHAPE, dtype=torch.float32, device=xs.device)
+    _launch(masked_tile, "slam_probe_masked_tile", xs.device, xs.data_ptr(),
+            ys.data_ptr(), len(xs), -LOG4, out.data_ptr(), *PROBE_SHAPE)
+    return out
+
+
+masked_tile.launches = 0
+masked_tile.plain = masked_tile_plain
+masked_tile.cells = masked_tile_cells
+masked_tile.shape = PROBE_SHAPE
+
+
+# -- P5, P6 (v5_vmem_scalar_read, v6_full_grid_vmem) -----------------------
+
+def scalar_sum_plain(xs: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros((), dtype=torch.float32, device=xs.device)
+    for x in xs:
+        acc = acc + x
+    return acc.reshape(1, 1)
+
+
+def scalar_sum(xs: torch.Tensor) -> torch.Tensor:
+    """P5: the in-order float32 sum of xs (n,) float32, as a (1, 1)
+    tensor."""
+    if not xs.is_cuda:
+        return scalar_sum_plain(xs)
+    _check("xs", xs, torch.float32, 1, xs.device)
+    out = torch.empty((1, 1), dtype=torch.float32, device=xs.device)
+    _launch(scalar_sum, "slam_probe_scalar_sum", xs.device, xs.data_ptr(),
+            xs.shape[0], out.data_ptr())
+    return out
+
+
+scalar_sum.launches = 0
+scalar_sum.plain = scalar_sum_plain
+
+
+def full_grid_plain(device) -> torch.Tensor:
+    return torch.ones(GRID_SHAPE, dtype=torch.float32, device=device)
+
+
+def full_grid(device) -> torch.Tensor:
+    """P6: a (1208, 1216) float32 grid of ones on `device`."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return full_grid_plain(device)
+    out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=device)
+    _launch(full_grid, "slam_probe_fill", device, out.data_ptr(),
+            out.numel(), 1.0)
+    return out
+
+
+full_grid.launches = 0
+full_grid.plain = full_grid_plain
+
+
+# -- P7, P8 (tools/scatter_microbench.py): map-update strategies -----------
+
+def tile_rmw_cells(xs: torch.Tensor, ys: torch.Tensor, vs: torch.Tensor):
+    return xs, ys, vs
+
+
+def tile_rmw_plain(xs: torch.Tensor, ys: torch.Tensor,
+                   vs: torch.Tensor) -> torch.Tensor:
+    return _add_in_order(_zeros(GRID_SHAPE, xs.device), xs, ys, vs)
+
+
+def tile_rmw(xs: torch.Tensor, ys: torch.Tensor,
+             vs: torch.Tensor) -> torch.Tensor:
+    """P7: a zero (1208, 1216) grid with grid[x_i, y_i] += v_i for every update
+    i in order (the TPU did one (8, 128) tile RMW per update). xs, ys (u,)
+    int32, vs (u,) float32."""
+    if not xs.is_cuda:
+        return tile_rmw_plain(xs, ys, vs)
+    for name, t, dt in (("xs", xs, torch.int32), ("ys", ys, torch.int32),
+                        ("vs", vs, torch.float32)):
+        _check(name, t, dt, 1, xs.device)
+    if not len(xs) == len(ys) == len(vs):
+        raise ValueError("xs, ys and vs must have one length")
+    out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=xs.device)
+    _launch(tile_rmw, "slam_probe_tile_rmw", xs.device, xs.data_ptr(),
+            ys.data_ptr(), vs.data_ptr(), len(xs), out.data_ptr(), *GRID_SHAPE)
+    return out
+
+
+tile_rmw.launches = 0
+tile_rmw.plain = tile_rmw_plain
+tile_rmw.cells = tile_rmw_cells
+tile_rmw.shape = GRID_SHAPE
+
+
+def segment_rmw_cells(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor):
+    l = torch.arange(LANES, dtype=torch.int32, device=x8.device)
+    r = (l * a[:, None] + b[:, None]) // 1024  # (n, 128): the row hit
+    seg, lane = ((r >= 0) & (r < TS) & (l < 96)).nonzero(as_tuple=True)
+    return x8[seg] + r[seg, lane], yl[seg] + lane, -LOG4
+
+
+def segment_rmw_plain(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    return _add_in_order(_zeros(GRID_SHAPE, x8.device),
+                         *segment_rmw_cells(x8, yl, a, b))
+
+
+def segment_rmw(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """P8: a zero (1208, 1216) grid; per segment (x8, yl, a, b), in order, the
+    cells (x8 + s, yl + l) of its (8, 128) tile with s == floor((l a + b) /
+    1024) and l < 96 get -1.386 (one RMW per segment on the TPU). All (n,)
+    int32."""
+    if not x8.is_cuda:
+        return segment_rmw_plain(x8, yl, a, b)
+    for name, t in (("x8", x8), ("yl", yl), ("a", a), ("b", b)):
+        _check(name, t, torch.int32, 1, x8.device)
+    if not len(x8) == len(yl) == len(a) == len(b):
+        raise ValueError("x8, yl, a and b must have one length")
+    out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=x8.device)
+    _launch(segment_rmw, "slam_probe_segment_rmw", x8.device, x8.data_ptr(),
+            yl.data_ptr(), a.data_ptr(), b.data_ptr(), len(x8), -LOG4,
+            out.data_ptr(), *GRID_SHAPE)
+    return out
+
+
+segment_rmw.launches = 0
+segment_rmw.plain = segment_rmw_plain
+segment_rmw.cells = segment_rmw_cells
+segment_rmw.shape = GRID_SHAPE
+
+
+# -- P9 (tools/vpu_probe.py): the v8 walk's per-visit work ----------------
+
+def vpu_visits(words: torch.Tensor, n_pairs: int, mode: str, device=None):
+    """The visits of one repetition of the P9 loop, in order, as (rt, lt,
+    delta): the visit adds the (64, 128) float32 tile delta at rows
+    [rt, rt + 64) x lanes [lt, lt + 128); delta is 0.0 where the visit's
+    mask is off (the TPU's masked RMW)."""
+    dev = words.device if device is None else device
+    s, l = _tile_iota(dev, VPU_TS)
+    V0 = 3 * s + 5 * l
+    ones = torch.ones((VPU_TS, LANES), dtype=torch.float32, device=dev)
+    w = words.tolist()
+    ray_w = min(n_pairs, RAY_W_MAX)
+
+    def unpack(w2):
+        span, d_lo, tile = w2 & 127, (w2 >> 7) & 255, w2 >> 15
+        return span, d_lo, (tile & 15) * LANES, (tile >> 4) * VPU_TS
+
+    def emit(C, w2):
+        span, d_lo, lt, rt = unpack(w2)
+        val = V0 + C
+        mk = (val >= 0) & (val < 60000) & (s >= d_lo) & (s - d_lo <= span)
+        return rt, lt, torch.where(
+            mk, torch.where(s == (C & 63), LOG4, -LOG4), 0.0)
+
+    def ray(i, visits):
+        stp = w[4][i] == 1
+        dM, dm = max(w[7][i], 1), w[8][i]
+        DR, other = (l, s) if stp else (s, l)
+        V0r = w[5][i] * dm * DR - w[6][i] * dM * other
+        for C, w2 in visits:
+            span, d_lo, lt, rt = unpack(w2)
+            d_end = w[9][i] - (lt if stp else rt)
+            val = V0r + C
+            mk = ((val >= 0) & (val < dM) & (DR >= d_lo)
+                  & (DR - d_lo <= span))
+            yield rt, lt, torch.where(
+                mk, torch.where(DR == d_end, LOG4, -LOG4), 0.0)
+
+    for i in range(n_pairs):
+        if mode == "rmw":
+            yield (i & 7) * VPU_TS, 0, ones
+            yield ((i + 3) & 7) * VPU_TS, 0, ones
+        elif mode == "vec":
+            t1 = (i & 3) | (((i >> 2) & 7) << 4)
+            t2 = ((i + 1) & 3) | ((((i >> 2) + 3) & 7) << 4)
+            yield emit(i & 1023, 37 | (5 << 7) | (t1 << 15))
+            yield emit((i + 7) & 1023, 51 | (9 << 7) | (t2 << 15))
+        elif mode in ("full", "fullv"):
+            yield emit(w[0][i], w[1][i])
+            yield emit(w[2][i], w[3][i])
+        else:
+            j = i & (ray_w - 1)
+            pairs = [(w[0][j], w[1][j])]
+            if mode == "ray2":
+                pairs.append((w[2][j], w[3][j]))
+            yield from ray(j, pairs)
+
+
+def vpu_adds(words: torch.Tensor, n_pairs: int, mode: str, shape):
+    """Per visit of one repetition of the P9 loop, in order: (flat, vals)
+    of the cells its mask lets through inside a grid of `shape`, i.e. the
+    cells the kernel writes (it skips the TPU's 0.0 adds)."""
+    s, l = _tile_iota(words.device, VPU_TS)
+    for rt, lt, delta in vpu_visits(words, n_pairs, mode):
+        on = delta != 0
+        yield _flat_adds(shape, (s + rt)[on], (l + lt)[on], delta[on])
+
+
+def vpu_loop_plain(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
+                   mode: str, reps: int) -> torch.Tensor:
+    """The probe's loop as the TPU ran it: every visit is a masked
+    (64, 128) tile RMW (grid[tile] += where(mask, +-1.386, 0.0))."""
+    W, H = grid.shape
+    for _ in range(reps):
+        for rt, lt, delta in vpu_visits(words, n_pairs, mode, grid.device):
+            r0, r1 = max(rt, 0), min(rt + VPU_TS, W)
+            c0, c1 = max(lt, 0), min(lt + LANES, H)
+            if r0 < r1 and c0 < c1:
+                grid[r0:r1, c0:c1] += delta[r0 - rt:r1 - rt, c0 - lt:c1 - lt]
+    return grid
+
+
+def _vpu_check(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
+               mode: str, reps: int) -> None:
+    if mode not in VPU_MODES:
+        raise ValueError(f"mode must be one of {VPU_MODES}, got {mode!r}")
+    if n_pairs < 0 or reps < 0:
+        raise ValueError("n_pairs and reps must be non-negative")
+    rows = 10 if mode in ("ray1", "ray2") else 4
+    cols = min(n_pairs, RAY_W_MAX) if rows == 10 else n_pairs
+    if words.dim() != 2 or words.shape[0] < rows or words.shape[1] < cols:
+        raise ValueError(f"words must be at least ({rows}, {cols}) for mode "
+                         f"{mode!r}, got {tuple(words.shape)}")
+
+
+def vpu_loop(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
+             mode: str, reps: int) -> torch.Tensor:
+    """P9: reps x n_pairs iterations of the mode's body (vpu_probe.py
+    make_kernel) on the carried grid, IN PLACE; returns grid. words (rows,
+    cols) int32: 4 rows (C, w2 of two visits) for the pair modes, 10 (plus
+    six aux words) for the ray modes; grid (W, H) float32."""
+    _vpu_check(words, grid, n_pairs, mode, reps)
+    if not grid.is_cuda:
+        return vpu_loop_plain(words, grid, n_pairs, mode, reps)
+    _check("grid", grid, torch.float32, 2, grid.device)
+    _check("words", words, torch.int32, 2, grid.device)
+    _launch(vpu_loop, "slam_probe_vpu_loop", grid.device, words.data_ptr(),
+            words.shape[1], n_pairs, VPU_MODES.index(mode), reps, LOG4,
+            grid.data_ptr(), *grid.shape)
+    return grid
+
+
+vpu_loop.launches = 0
+vpu_loop.plain = vpu_loop_plain
+
+WRAPPERS = (smem_stream, dynamic_store, dynamic_lane_store, masked_tile,
+            scalar_sum, full_grid, tile_rmw, segment_rmw, vpu_loop)

@@ -61,7 +61,7 @@ def default_ray_cells(cfg: SlamConfig, range_max: float = 30.0) -> int:
 
 def init_state(first_points, first_mask, cfg: SlamConfig = SlamConfig(),
                n_max: int = 8192, x0=None, K: int | None = None,
-               device="cpu") -> OnlineState:
+               device="cuda") -> OnlineState:
     """State after observing the FIRST scan at the start pose x0 (default
     the origin), on `device` (raises when CUDA is asked for and absent).
 
@@ -237,7 +237,7 @@ def save_state(path: str, state: OnlineState) -> None:
     np.savez(path, **interop.to_numpy(state._asdict()))
 
 
-def load_state(path: str, device="cpu") -> OnlineState:
+def load_state(path: str, device="cuda") -> OnlineState:
     """Restore a checkpoint written by either package's save_state onto
     `device`. A checkpoint written before match_rms existed resumes with
     match_rms = 0."""

@@ -136,7 +136,7 @@ def run_slam(
     cfg: SlamConfig = SlamConfig(),
     build_map: bool = True,
     chunk_size: int = 64,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> SlamResult:
     """Run the SLAM pipeline on synchronized sensor arrays.

@@ -13,11 +13,14 @@ import pytest
 import torch
 
 from lidar_slam_tpu_torch.config import MapConfig
+from lidar_slam_tpu_torch.kernels import probes
 from lidar_slam_tpu_torch.kernels.nn import nn_argmin
 from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build, raywalk_scan
 from lidar_slam_tpu_torch.models import occupancy
 from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
 from lidar_slam_tpu_torch.ops.raywalk import scan_delta_raywalk
+from lidar_slam_tpu_torch.tools import pallas_probe, scatter_microbench
+from lidar_slam_tpu_torch.tools import vpu_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -267,3 +270,106 @@ def test_raywalk_scan_rejects_bad_inputs(dev):
         raywalk_scan(ends, mask, cfg, 8, grid.t().contiguous().t(), None)
     with pytest.raises(ValueError, match="ends must be"):
         raywalk_scan(ends[None], mask, cfg, 8, grid, None)
+
+
+# -- the probes P1-P9 (csrc/probes.cu): bit-exact against the plain versions
+
+def _same_bits(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", list(pallas_probe.KERNELS))
+def test_construct_probe_bit_exact(dev, name):
+    """P1-P6 on the JAX tool's inputs."""
+    wrapper = pallas_probe.KERNELS[name]
+    before = wrapper.launches
+    got = pallas_probe.call(name, dev)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _same_bits(got, pallas_probe.call(name, "cpu"))
+
+
+def _int32(rng, lo, hi, n):
+    return torch.as_tensor(rng.integers(lo, hi, n), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", ["rays_4096", "rays_100000", "random"])
+def test_tile_rmw_bit_exact(dev, case):
+    """P7: ray-shaped updates (many adds per cell, in order), and random
+    ones including cells outside the grid (dropped)."""
+    if case == "random":
+        rng = np.random.default_rng(8)
+        W, H = probes.GRID_SHAPE
+        u = 50_000
+        args = (_int32(rng, -20, W + 20, u), _int32(rng, -20, H + 20, u),
+                torch.as_tensor(rng.normal(0, 1e3, u), dtype=torch.float32))
+    else:
+        u = int(case.split("_")[1])
+        args = tuple(map(torch.from_numpy,
+                         scatter_microbench.make_updates(u, 3)))
+    before = probes.tile_rmw.launches
+    got = probes.tile_rmw(*(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    assert probes.tile_rmw.launches == before + 1
+    _same_bits(got, probes.tile_rmw(*args))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_segment_rmw_bit_exact(dev, aligned):
+    """P8 on the tool's segments, and on unaligned tile offsets (a segment
+    then spans two row bands) partly outside the grid."""
+    if aligned:
+        args = tuple(map(torch.from_numpy,
+                         scatter_microbench.seg_args(5000, 2)))
+    else:
+        rng = np.random.default_rng(9)
+        W, H = probes.GRID_SHAPE
+        n = 5000
+        args = (_int32(rng, -10, W, n), _int32(rng, -100, H, n),
+                _int32(rng, -1024, 1024, n), _int32(rng, -8192, 8192, n))
+    before = probes.segment_rmw.launches
+    got = probes.segment_rmw(*(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    assert probes.segment_rmw.launches == before + 1
+    want = probes.segment_rmw(*args)
+    _same_bits(got, want)
+    assert int((want != 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("mode,n_pairs,reps", [
+    *((m, 64, 3) for m in probes.VPU_MODES),
+    ("fullv", 3000, 1),  # more pairs than one shared-memory stage
+    ("ray2", 4100, 1),  # the ray table wraps at 4,096 columns
+])
+def test_vpu_loop_bit_exact(dev, mode, n_pairs, reps):
+    """P9 in place on a random carried grid."""
+    rays = mode in ("ray1", "ray2")
+    words = torch.from_numpy(vpu_probe.words_for(n_pairs, 5, rays=rays))
+    grid = torch.as_tensor(np.random.default_rng(6).normal(
+        0, 1, (vpu_probe.GRID, vpu_probe.GRID)), dtype=torch.float32)
+    want = probes.vpu_loop(words, grid.clone(), n_pairs, mode, reps)
+    g = grid.to(dev)
+    before = probes.vpu_loop.launches
+    out = probes.vpu_loop(words.to(dev), g, n_pairs, mode, reps)
+    torch.cuda.synchronize()
+    assert probes.vpu_loop.launches == before + 1 and out is g
+    _same_bits(g, want)
+    assert int((want != grid).sum()) > 100
+
+
+def test_probe_wrappers_reject_bad_inputs(dev):
+    xs = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="one length"):
+        probes.masked_tile(xs, xs[:4])
+    with pytest.raises(ValueError, match="xs must be"):
+        probes.dynamic_store(xs.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.tile_rmw(xs[::2], xs[::2], xs[::2].float())
+    with pytest.raises(ValueError, match="words must be"):
+        probes.vpu_loop(xs.view(4, 2), torch.zeros((512, 512), device=dev),
+                        4, "full", 1)
+    with pytest.raises(ValueError, match="grid must be"):
+        probes.vpu_loop(xs.view(4, 2), torch.zeros((512, 512), device=dev,
+                                                   dtype=torch.float64),
+                        2, "full", 1)

@@ -75,7 +75,8 @@ def _port_run(log, steps=N, n_max=64, cfg=TCFG, x0=None, st=None, start=1,
               k=K):
     counts, gyro, pts, masks = log
     if st is None:
-        st = ton.init_state(pts[0], masks[0], cfg, n_max=n_max, K=k, x0=x0)
+        st = ton.init_state(pts[0], masks[0], cfg, n_max=n_max, K=k, x0=x0,
+                            device="cpu")
     for t in range(start, steps):
         st = ton.online_step(st, counts[t], gyro[t], pts[t], masks[t], cfg,
                              K=k)
@@ -192,7 +193,7 @@ def test_refine_matches_jax(case, tmp_path):
     jst = _jax_run(log, steps=c["steps"], n_max=c["n_max"], x0=c["x0"])
     path = str(tmp_path / "jax.npz")
     jon.save_state(path, jst)
-    tst = ton.load_state(path)
+    tst = ton.load_state(path, device="cpu")
     kw = {}
     if c["scans"]:
         kw = dict(scans=log[2], scan_masks=log[3])
@@ -235,7 +236,8 @@ def test_checkpoint_resumes_across_packages(tmp_path):
     tst = _port_run(log, steps=15)
     ton.save_state(p_ck, tst)
     full = _np(_port_run(log, st=tst, start=15))
-    resumed = _np(_port_run(log, st=ton.load_state(p_ck), start=15))
+    resumed = _np(_port_run(log, st=ton.load_state(p_ck, device="cpu"),
+                            start=15))
     for k in full:
         np.testing.assert_array_equal(resumed[k], full[k], err_msg=k)
 
@@ -247,7 +249,8 @@ def test_checkpoint_resumes_across_packages(tmp_path):
             assert (a[k].dtype, a[k].shape) == (b[k].dtype, b[k].shape), k
     j_full = _np(_jax_run(log, st=jst, start=15))
     j_from_port = _np(_jax_run(log, st=jon.load_state(p_ck), start=15))
-    t_from_jax = _np(_port_run(log, st=ton.load_state(j_ck), start=15))
+    t_from_jax = _np(_port_run(log, st=ton.load_state(j_ck, device="cpu"),
+                            start=15))
     for got, want in ((j_from_port, full), (t_from_jax, j_full)):
         np.testing.assert_allclose(got["poses_hist"][:N],
                                    want["poses_hist"][:N], rtol=0,

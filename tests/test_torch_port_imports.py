@@ -71,6 +71,27 @@ def test_online_modules_import_without_jax():
     assert out.stdout.strip() == "False"
 
 
+_IMPORT_PROBES = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import lidar_slam_tpu_torch.kernels.probes  # noqa: F401
+import lidar_slam_tpu_torch.tools.pallas_probe  # noqa: F401
+import lidar_slam_tpu_torch.tools.scatter_microbench  # noqa: F401
+import lidar_slam_tpu_torch.tools.vpu_probe  # noqa: F401
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "lidar_slam_tpu")))
+"""
+
+
+def test_probe_modules_import_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PROBES, ROOT],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_library_path_hashes_every_csrc_file(tmp_path, monkeypatch):
     """An added or edited header (.cuh) changes the library name, so a
     stale build is never reused; the nvcc sources stay the .cu files."""
@@ -90,7 +111,8 @@ def test_library_path_hashes_every_csrc_file(tmp_path, monkeypatch):
     header.write_text("#pragma once\nconstexpr int kTile = 32;\n")
     edited = build.library_path()
     assert len({base, added, edited}) == 3
-    assert [p.suffix for p in build.sources()] == [".cu"] * 2
+    assert [p.name for p in build.sources()] == ["nn.cu", "probes.cu",
+                                                 "raywalk.cu"]
     header.unlink()
     assert build.library_path() == base
 

@@ -1,0 +1,277 @@
+"""The port's probes P1-P9 (kernels/probes.py, run here through their plain
+versions) against the JAX package's probe tools run in Pallas interpret
+mode on the CPU, bit for bit, on the tools' own inputs at small sizes.
+
+The JAX tools are loaded from tools/ unchanged. pallas_call is wrapped to
+pass interpret=True and to record each call's inputs and output (outside
+jit, where they are concrete arrays), jax.jit is made the identity and the
+device probe stubbed. The tools set JAX's compilation-cache config when
+imported or run; a fixture resets it after each import and at the end.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from lidar_slam_tpu_torch.kernels import probes
+from lidar_slam_tpu_torch.tools import pallas_probe as tpp
+from lidar_slam_tpu_torch.tools import scatter_microbench as tsm
+from lidar_slam_tpu_torch.tools import vpu_probe as tvp
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = ("jax_compilation_cache_dir",
+          "jax_persistent_cache_min_compile_time_secs")
+SMALL_U, SMALL_SEG, SMALL_M1 = 4096, 1024, 16  # multiples of CH = 512
+
+
+@pytest.fixture(scope="module")
+def tools_env():
+    """(MonkeyPatch, calls, load): pallas_call runs in interpret mode and
+    records (kernel, inputs, output) of each call in `calls`; jax.jit is
+    the identity and the TPU device probe a stub; load(name) imports a JAX
+    tool and resets JAX's config. Restores the config and sys.path."""
+    saved = {k: getattr(jax.config, k) for k in CONFIG}
+    path = list(sys.path)
+    calls = []
+    orig = pl.pallas_call
+
+    def reset():
+        for k, v in saved.items():
+            jax.config.update(k, v)
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            f"_jax_tool_{name}", os.path.join(ROOT, "tools", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset()
+        return mod
+
+    def pallas_call(kernel, *args, **kwargs):
+        fn = orig(kernel, *args, interpret=True, **kwargs)
+
+        def run(*inputs):
+            copies = [np.array(a) for a in inputs]
+            out = fn(*inputs)
+            calls.append((kernel, copies, np.array(out)))
+            return out
+
+        return run
+
+    import lidar_slam_tpu.utils.profiling as profiling
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call", pallas_call)
+        mp.setattr(jax, "jit", lambda f=None, **kw: f)
+        mp.setattr(profiling, "devices_or_die", lambda *a, **k: [None])
+        yield mp, calls, load
+    reset()
+    sys.path[:] = path
+
+
+def _bits_equal(got: torch.Tensor, want: np.ndarray):
+    got = got.numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.fixture(scope="module")
+def jax_pallas_probe(tools_env):
+    _, calls, load = tools_env
+    tool = load("pallas_probe")
+    out = {}
+    for name in tpp.KERNELS:
+        n = len(calls)
+        getattr(tool, name)()
+        assert len(calls) == n + 1
+        out[name] = calls[-1][1:]
+    return out
+
+
+@pytest.mark.parametrize("name", list(tpp.KERNELS))
+def test_pallas_probe_bit_exact(jax_pallas_probe, name):
+    """P1-P6: the JAX tool's inputs are the port tool's, and the port's
+    plain version gives the JAX kernel's output bit for bit."""
+    inputs, want = jax_pallas_probe[name]
+    mine = tpp.inputs(name)
+    assert len(inputs) == len(mine)
+    for a, b in zip(inputs, mine):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    _bits_equal(tpp.call(name, "cpu"), want)
+    assert np.count_nonzero(want) > 0
+
+
+@pytest.fixture(scope="module")
+def jax_scatter(tools_env):
+    return tools_env[2]("scatter_microbench")
+
+
+def test_tile_rmw_bit_exact(jax_scatter):
+    """P7: u ray-shaped updates added in order."""
+    want_in = jax_scatter.make_updates(SMALL_U, 0)
+    mine = tsm.make_updates(SMALL_U, 0)
+    for a, b in zip(want_in, mine):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    want = np.asarray(jax_scatter.pallas_rmw(SMALL_U)(*want_in))
+    got = probes.tile_rmw(*map(torch.from_numpy, mine))
+    _bits_equal(got, want)
+    # the first steps of 1,081 rays from one centre: about 4,000 adds on
+    # a few dozen cells, so the order of the adds shows in the sums
+    flat = mine[0].astype(np.int64) * tsm.H + mine[1]
+    assert np.count_nonzero(want) == len(np.unique(flat)) < 100
+
+
+def test_segment_rmw_bit_exact(jax_scatter):
+    """P8: per segment, the cells of its tile on the closed-form line."""
+    args = tsm.seg_args(SMALL_SEG, 0)
+    want = np.asarray(jax_scatter.pallas_seg(SMALL_SEG)(*args))
+    got = probes.segment_rmw(*map(torch.from_numpy, args))
+    _bits_equal(got, want)
+    assert np.count_nonzero(want) > 1000 and want.min() < -1.386
+
+
+@pytest.fixture(scope="module")
+def jax_vpu_calls(tools_env):
+    """vpu_probe.main() at m1 = 16 with one rep: three calls per mode
+    (warm-up and 8 reps, then 40 reps) on seeded words and grids."""
+    mp, calls, load = tools_env
+    tool = load("vpu_probe")
+    mp.setattr(sys, "argv", ["vpu_probe.py", "--m1", str(SMALL_M1),
+                             "--reps", "1", "--modes",
+                             ",".join(probes.VPU_MODES)])
+    n = len(calls)
+    tool.main()  # sets the cache config again before it compiles
+    out = {}
+    for kernel, inputs, grid in calls[n:]:
+        free = dict(zip(kernel.__code__.co_freevars,
+                        (c.cell_contents for c in kernel.__closure__)))
+        out.setdefault(free["mode"], []).append(
+            (free["n_pairs"], free["reps"], inputs, grid))
+    return out
+
+
+@pytest.mark.parametrize("mode", probes.VPU_MODES)
+def test_vpu_loop_bit_exact(jax_vpu_calls, mode):
+    """P9: every call of the mode, on the carried random grid."""
+    runs = jax_vpu_calls[mode]
+    assert [(n, r) for n, r, _, _ in runs] == [(SMALL_M1, 8), (SMALL_M1, 8),
+                                               (SMALL_M1, 40)]
+    rays = mode in ("ray1", "ray2")
+    for n_pairs, reps, inputs, want in runs:
+        words, grid = inputs[0], inputs[-1]
+        np.testing.assert_array_equal(words,
+                                      tvp.words_for(n_pairs, 10, rays=rays))
+        got = probes.vpu_loop(torch.from_numpy(words),
+                              torch.from_numpy(grid.copy()), n_pairs, mode,
+                              reps)
+        _bits_equal(got, want)
+        assert np.count_nonzero(want != grid) > 100
+
+
+@pytest.mark.parametrize("name", ["v1_smem_stream", "v2_dynamic_store",
+                                  "v3_dynamic_lane_store", "v4_masked_tile",
+                                  "tile_rmw", "segment_rmw"])
+def test_adds_give_the_probe(name):
+    """probes.adds lists a probe's adds in order: one index_add_ of them
+    into a zero grid (in order on the CPU) is the probe's output, the
+    library call that phase [10] of chip_smoke.py times."""
+    if name == "tile_rmw":
+        fn, args = probes.tile_rmw, tsm.make_updates(SMALL_U, 0)
+    elif name == "segment_rmw":
+        fn, args = probes.segment_rmw, tsm.seg_args(SMALL_SEG, 0)
+    else:
+        fn, args = tpp.KERNELS[name], tpp.inputs(name)
+    args = [torch.from_numpy(a) for a in args]
+    flat, vals = probes.adds(fn, *args)
+    got = tsm.index_add(flat, vals, fn.shape)
+    _bits_equal(got, fn(*args).numpy())
+
+
+@pytest.mark.parametrize("mode", probes.VPU_MODES)
+def test_vpu_adds_give_the_loop(mode):
+    """P9: the cells each visit writes (vpu_adds), added in order on the
+    carried grid, are the plain loop (which adds 0.0 off the mask)."""
+    words = torch.from_numpy(tvp.words_for(SMALL_M1, 3,
+                                           rays=mode in ("ray1", "ray2")))
+    grid = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (tvp.GRID, tvp.GRID)).astype(np.float32))
+    adds = list(probes.vpu_adds(words, SMALL_M1, mode, grid.shape)) * 2
+    flat = torch.cat([f for f, _ in adds])
+    want = probes.vpu_loop(words, grid.clone(), SMALL_M1, mode, 2)
+    got = grid.clone().view(-1).index_add_(
+        0, flat, torch.cat([v for _, v in adds])).view(grid.shape)
+    _bits_equal(got, want.numpy())
+    assert len(flat) > 0
+
+
+def test_cells_per_visit():
+    """The cells a P9 visit writes: the whole (64, 128) tile for rmw, the
+    rows [5, 42] and [9, 60] of vec's two fixed visits, a random span for
+    full, and a ray's few cells for the ray modes."""
+    def cells(mode, m1=64):
+        rays = mode in ("ray1", "ray2")
+        return tvp.cells_per_visit(torch.from_numpy(
+            tvp.words_for(m1, 10, rays=rays)), m1, mode)
+
+    assert cells("rmw") == 64 * 128
+    assert cells("vec") == (38 + 52) * 128 / 2
+    assert 1000 < cells("full") == cells("fullv") < 5000
+    assert 0 < cells("ray1") < 64 and 0 < cells("ray2") < 64
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    """On CPU tensors no kernel is launched, and a bad P9 call raises
+    before any route is taken."""
+    before = [w.launches for w in probes.WRAPPERS]
+    tpp.call("v4_masked_tile", "cpu")
+    probes.full_grid("cpu")
+    args = tsm.seg_args(64, 1)
+    probes.segment_rmw(*map(torch.from_numpy, args))
+    assert [w.launches for w in probes.WRAPPERS] == before
+    with pytest.raises(ValueError, match="mode"):
+        probes.vpu_loop(torch.zeros((4, 8), dtype=torch.int32),
+                        torch.zeros((512, 512)), 8, "nope", 1)
+    with pytest.raises(ValueError, match="words must be"):
+        probes.vpu_loop(torch.zeros((4, 8), dtype=torch.int32),
+                        torch.zeros((512, 512)), 8, "ray1", 1)
+
+
+def test_plain_adds_in_update_order():
+    """Three updates of one cell in two orders: float32 rounding makes the
+    order visible, and the plain version keeps it."""
+    xs = torch.tensor([5, 5, 5], dtype=torch.int32)
+    ys = torch.tensor([7, 7, 7], dtype=torch.int32)
+    big, small = 1e8, 3.0
+    a = probes.tile_rmw(xs, ys, torch.tensor([big, small, -big]))
+    b = probes.tile_rmw(xs, ys, torch.tensor([big, -big, small]))
+    assert float(a[5, 7]) == 0.0 and float(b[5, 7]) == small
+    # cells outside the grid are dropped
+    out = probes.tile_rmw(torch.tensor([-1, 2000], dtype=torch.int32),
+                          torch.tensor([3, 3], dtype=torch.int32),
+                          torch.ones(2))
+    assert float(out.abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("tool", ["pallas_probe", "scatter_microbench",
+                                  "vpu_probe"])
+def test_probe_tools_refuse_a_host_without_cuda(tool):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the refusal is not reachable")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-m",
+                          f"lidar_slam_tpu_torch.tools.{tool}"],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "needs a CUDA GPU" in out.stderr
+    assert out.stdout == ""

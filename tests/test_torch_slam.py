@@ -197,12 +197,12 @@ def test_unported_run_slam_options_raise(log):
         cfg.pose_graph, solver="direct"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, mode="gtsam",
-                       cfg=bad)
+                       cfg=bad, device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, mode="online")
 
 
-def test_cuda_device_raises_without_cuda(log):
+def test_cuda_device_raises_without_cuda(log, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the no-CUDA refusal is not "
                     "reachable")
@@ -211,3 +211,19 @@ def test_cuda_device_raises_without_cuda(log):
         tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["--synthetic", "10", "--device", "cuda"])
+    # the entry points default to the card: called without a device they
+    # refuse a host without one instead of running on the CPU
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, mode="gtsam")
+    from lidar_slam_tpu_torch.models import online as ton
+
+    cfg = _cfg(tc)
+    pts, masks = tscan.scans_to_points(
+        torch.as_tensor(ranges, dtype=torch.float32), 0.1, 30.0, cfg.lidar)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ton.init_state(pts[0], masks[0], cfg, K=64)
+    st = ton.init_state(pts[0], masks[0], cfg, n_max=16, K=64, device="cpu")
+    path = str(tmp_path / "ck.npz")
+    ton.save_state(path, st)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ton.load_state(path)
