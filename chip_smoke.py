@@ -9,8 +9,10 @@ first failure and catches nothing):
 
   1. device check and the card's `name, power.limit` (nvidia-smi);
   2. build of the CUDA kernels from lidar_slam_tpu_torch/csrc;
-  3. nn_argmin kernel against its plain version on one real ICP chunk
-     (64 consecutive scan pairs of the seed-20 dataset);
+  3. nn_argmin kernel on one real ICP chunk (64 consecutive scan pairs
+     of the seed-20 dataset): indices equal to nn_argmin_rounded (its
+     arithmetic op by op in PyTorch) and matched points bit-equal, and
+     within the index-flip gate of its plain version;
   4. raywalk_build kernel against its plain version (the scatter path, run
      on CPU copies of the same ray end cells) on 32 scans: bit-exact;
   5. the main path, run_slam(mode="gtsam", device="cuda"), on the
@@ -27,7 +29,7 @@ first failure and catches nothing):
      seed-21 log replayed at their odometry poses, clipped, on a GPU grid
      and on a CPU copy, and one unclipped scan_delta: bit-exact; per-scan
      times of the kernel and the plain scatter on the GPU; nn_argmin at
-     the online path's B = 1;
+     the online path's B = 1, gated as in [3];
   8. the online (serving) path at dataset-20 width: init_state and
      online_step over the whole 4,956-step log (n_max 8,192, refine with
      gated fixed loops every 1,000 steps), after a 50-step warm-up, with
@@ -44,14 +46,23 @@ first failure and catches nothing):
      (P9 at a reduced 64 pairs x 2 repetitions, as its plain version loops
      in Python); then, with the launch counters reset, the port's three
      probe tools (lidar_slam_tpu_torch/tools: pallas_probe,
-     scatter_microbench, vpu_probe) at the JAX tools' sizes and counts.
+     scatter_microbench, vpu_probe) at the JAX tools' sizes and counts;
+ 11. device time a launch from torch.profiler (self CUDA time over the
+     launches) beside the CUDA-event time, for raywalk_scan over 100
+     clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
+     pairs; and 100 online steps of a fresh stream (after 20 unprofiled
+     ones): device time and kernel launches a step, and the share of
+     raywalk_scan and nn_argmin (last, so the profiler cannot slow the
+     timings before it).
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2 and K4; the
 tools' run in [10] for P1-P9), its error against its plain version, its,
 the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
-the H100's published HBM and FP32 rates), and {"ok": true, "device": ...}.
+the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
+nn_argmin and raywalk_scan with their profiler device times), and
+{"ok": true, "device": ...}.
 """
 
 import json
@@ -115,20 +126,53 @@ def turns(plain, kernel, library, reps: int, plain_reps: int | None = None):
             None if library is None else sum(t_l) / 2)
 
 
+def device_kernels(fn, reps: int) -> dict:
+    """{kernel name: (device us, launches)} of the device kernels that reps
+    calls of fn ran, from torch.profiler (self CUDA time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: (getattr(ev, "self_device_time_total", None)
+                     or ev.self_cuda_time_total, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn, reps: int, kernel: str):
+    """Device ms a launch of the kernels whose name holds `kernel` over
+    reps calls of fn (after one unprofiled call); None if the trace shows
+    none."""
+    fn()
+    torch.cuda.synchronize()
+    hits = [v for k, v in device_kernels(fn, reps).items() if kernel in k]
+    us, count = sum(v[0] for v in hits), sum(v[1] for v in hits)
+    return us / count / 1e3 if count and us > 0 else None
+
+
 def nn_check(s, t, tm, reps: int):
-    """nn_argmin against its plain version on (s, t, tm): index-flip
-    share, max chosen-distance gap, kernel, plain and library ms (the
-    library: torch.cdist + argmin with the masked targets moved far out of
-    range), and the bound."""
-    from lidar_slam_tpu_torch.kernels.nn import nn_argmin
+    """nn_argmin on (s, t, tm): against nn_argmin_rounded exactly (fails
+    on any index or matched-bit difference), against its plain version
+    within the index-flip gate; index-flip share, max chosen-distance
+    gap, kernel, plain and library ms (the library: torch.cdist + argmin
+    with the masked targets moved far out of range), and the bound."""
+    from lidar_slam_tpu_torch.kernels.nn import nn_argmin, nn_argmin_rounded
     from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
 
     idx_k, matched_k = nn_argmin(s, t, tm)
+    idx_r, matched_r = nn_argmin_rounded(s, t, tm)
     idx_p = nearest_neighbors(s, t, tm)
     matched_p = gather_points(t, idx_p)
     torch.cuda.synchronize()
-    if not torch.equal(matched_k, gather_points(t, idx_k)):
-        fail("nn_argmin matched points differ from tgt[idx]")
+    mismatches = int((idx_k != idx_r).sum())
+    if mismatches or not torch.equal(matched_k.view(torch.int32),
+                                     matched_r.view(torch.int32)):
+        fail(f"nn_argmin differs from nn_argmin_rounded: {mismatches} "
+             f"indices")
     flips = float((idx_k != idx_p).float().mean())
     gap = float(((s - matched_k) ** 2).sum(-1).sub(
         ((s - matched_p) ** 2).sum(-1)).abs().max())
@@ -145,6 +189,9 @@ def nn_check(s, t, tm, reps: int):
     nbytes = 4 * (s.numel() + t.numel()) + tm.numel() + 4 * B * N * (1 + D)
     return flips, gap, ms, plain_ms, lib_ms, bound(nbytes,
                                                    6 * B * N * t.shape[1])
+
+
+NN_EXACT = "indices equal to nn_argmin_rounded, matched bit-equal"
 
 
 def visits(ends, masks, cfg, K) -> int:
@@ -379,8 +426,8 @@ def main() -> int:
     pts3 = icp_ops.lift_to_3d(pts20)
     flips, gap, nn_ms, nn_plain_ms, nn_lib_ms, nn_bound = nn_check(
         pts3[1:65], pts3[:64], masks20[:64], 50)
-    print(f"[3] nn_argmin vs plain, 64 x 1081 x 1081: index flips "
-          f"{flips:.5f}, max chosen-distance gap {gap:.3e}; kernel "
+    print(f"[3] nn_argmin, 64 x 1081 x 1081: {NN_EXACT}; vs plain: index "
+          f"flips {flips:.5f}, max chosen-distance gap {gap:.3e}; kernel "
           f"{nn_ms:.4f} ms, plain {nn_plain_ms:.4f} ms, torch.cdist + argmin "
           f"{nn_lib_ms:.4f} ms; bound {nn_bound[0]:.5f} ms "
           f"({nn_bound[1]})", flush=True)
@@ -539,7 +586,7 @@ def main() -> int:
           f" raywalk_scan {scan_ms:.4f} ms, plain scatter + clamp on the GPU"
           f" {scan_plain_ms:.4f} ms; scan_delta (zero grid + unclipped walk)"
           f" {delta_ms:.4f} ms; bound {scan_bound[0]:.5f} ms "
-          f"({scan_bound[1]}); nn_argmin B=1 1x1081x1081: flips "
+          f"({scan_bound[1]}); nn_argmin B=1 1x1081x1081: {NN_EXACT}; flips "
           f"{flips1:.5f}, gap {gap1:.3e}, kernel {nn1_ms:.4f} ms, plain "
           f"{nn1_plain_ms:.4f} ms, torch.cdist + argmin {nn1_lib_ms:.4f} ms, "
           f"bound {nn1_bound[0]:.5f} ms ({nn1_bound[1]})", flush=True)
@@ -658,6 +705,46 @@ def main() -> int:
 
     probe_rows = probe_phase(dev)
 
+    # 11. device time a launch (torch.profiler) beside the CUDA events
+    dev_scan = device_ms(scan_kernel, 100, "raywalk_scan_kernel")
+    dev_nn1 = device_ms(lambda: nn_argmin(pts3_21[101:102], pts3_21[100:101],
+                                          masks21[100:101]), 200,
+                        "nn_argmin_kernel")
+    dev_nn = device_ms(lambda: nn_argmin(pts3[1:65], pts3[:64],
+                                         masks20[:64]), 50,
+                       "nn_argmin_kernel")
+
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    print(f"[11] device time a launch (torch.profiler) vs CUDA events: "
+          f"raywalk_scan, 100 clipped scans, {fmt(dev_scan)} vs "
+          f"{scan_ms:.4f} ms; nn_argmin B=1, 200 launches, {fmt(dev_nn1)} "
+          f"vs {nn1_ms:.4f} ms; nn_argmin 64 pairs, 50 launches, "
+          f"{fmt(dev_nn)} vs {nn_ms:.4f} ms", flush=True)
+    st_p = online.init_state(pts21[0], masks21[0], cfg_on, n_max=8192,
+                             K=K_on, device=dev)
+    steps_p = iter(range(1, 121))
+
+    def one_step():
+        nonlocal st_p
+        t = next(steps_p)
+        st_p = online.online_step(st_p, counts21[t], gyro21[t], pts21[t],
+                                  masks21[t], cfg_on, K=K_on)
+
+    for _ in range(20):
+        one_step()
+    kern = device_kernels(one_step, 100)
+    step_us = sum(v[0] for v in kern.values())
+    share = {name: sum(v[0] for k, v in kern.items() if name in k) / step_us
+             for name in ("raywalk_scan_kernel", "nn_argmin_kernel")
+             } if step_us else {}
+    print(f"[11] online step under torch.profiler, 100 steps: device time "
+          f"{step_us / 100 / 1e3:.4f} ms a step, "
+          f"{sum(v[1] for v in kern.values()) / 100:.1f} kernel launches a "
+          f"step; shares of device time "
+          + ", ".join(f"{k} {v:.3f}" for k, v in share.items()), flush=True)
+
     print(card)
     # launches: the main paths' runs, gtsam [5] plus online [8]
     print(json.dumps({"kernels": [
@@ -667,7 +754,10 @@ def main() -> int:
          "launches": launches["nn_argmin"] + launches_on["nn_argmin"],
          "max_abs_err": max(gap, gap1), "ms": nn_ms,
          "plain_ms": nn_plain_ms, "bound_ms": nn_bound[0],
-         "bound_by": nn_bound[1], "library_ms": nn_lib_ms},
+         "bound_by": nn_bound[1], "library_ms": nn_lib_ms,
+         "device_ms": dev_nn, "ms_b1": nn1_ms, "plain_ms_b1": nn1_plain_ms,
+         "library_ms_b1": nn1_lib_ms, "bound_ms_b1": nn1_bound[0],
+         "device_ms_b1": dev_nn1},
         # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
@@ -684,7 +774,7 @@ def main() -> int:
          "max_abs_err": max(diff_scan, diff_delta, diff_k1),
          "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound[0], "bound_by": scan_bound[1],
-         "library_ms": None},
+         "library_ms": None, "device_ms": dev_scan},
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,18 +12,12 @@
 // with the grid aliased in and out: build_logodds_raywalk with an init
 // grid, and scan_delta_raywalk with no clip). It is the online mode's
 // per-step map update. Per step at the online path's shapes (1,081 rays,
-// K = 608, a 1201 x 1201 grid of 19 x 19 tiles) it does about 1,081 x 361
-// interval tests and at most about 0.66 M cell updates; with the clip it
-// also reads and writes the 5.8 MB grid once, a few microseconds of HBM
-// traffic at 3.35 TB/s. What bounds it is neither: every ray starts in
-// the robot's cell, so the block that owns the robot's tile walks nearly
-// every ray of the scan, one barrier apart. Measured on an H100 80GB HBM3
-// at 700 W: 0.174 ms for a real scan with or without the clip, against
-// 0.016-0.025 ms for a launch whose scan is fully masked (the launch plus
-// the grid round trip). Later options: walk a tile's rays with one warp
-// (two slots a lane, __syncwarp between rays instead of a block barrier);
-// then a launch over the touched tiles only, or CUDA graphs of the whole
-// online step.
+// K = 608, a 1201 x 1201 grid) it does about 1,081 x 1,444 interval tests
+// and at most about 0.66 M cell updates; with the clip it also reads and
+// writes the 5.8 MB grid once, a few microseconds of HBM traffic at 3.35
+// TB/s. What bounds it is neither: every ray starts in the robot's cell,
+// so whoever owns the robot's cell walks nearly every ray of the scan, in
+// ray order, and the robot's cell alone takes about 1,081 dependent adds.
 //
 // Semantics (reference modules/ogm.py:149-188, models/occupancy.py): scans
 // in order; within a scan, rays in order; each valid ray walks its
@@ -43,19 +37,49 @@
 // cost is the per-ray interval test every block repeats, and the barrier
 // after each ray that touches the block's tile.
 //
-// Design: thread blocks own map tiles. Block (bx, by) keeps the 64 x 64
-// tile at x0 = 64 bx, y0 = 64 by in shared memory (16 KB), loaded once
-// from the grid (zeros or an init grid). For each scan, it takes the rays
-// 128 at a time: each thread computes one ray's slot interval clipped to
-// the map (the closed form of ray_descriptors) and then to the tile (the
-// same closed form with the tile's bounds); the rays with a non-empty
-// sub-interval are compacted in order into shared memory. The block then
-// walks them in order: thread t adds to the cell at slot k_lo + t (one ray
-// never visits a cell twice, and a ray crosses a 64-cell tile in at most
-// 64 slots), with a barrier between rays. After the scan the tile is
-// clipped. Tiles never interact, so there is no grid-wide synchronisation,
-// and the tile is written back once at the end. raywalk_scan is the same
-// walk over one scan; both kernels share compact_rays and walk_rays.
+// Design of raywalk_build: thread blocks own map tiles. Block (bx, by)
+// keeps the 64 x 64 tile at x0 = 64 bx, y0 = 64 by in shared memory (16
+// KB), loaded once from the grid (zeros or an init grid). For each scan,
+// it takes the rays 128 at a time: each thread computes one ray's slot
+// interval clipped to the map (the closed form of ray_descriptors) and
+// then to the tile (the same closed form with the tile's bounds); the rays
+// with a non-empty sub-interval are compacted in order into shared memory.
+// The block then walks them in order: thread t adds to the cell at slot
+// k_lo + t (one ray never visits a cell twice, and a ray crosses a 64-cell
+// tile in at most 64 slots), with a barrier between rays. After the scan
+// the tile is clipped. Tiles never interact, so there is no grid-wide
+// synchronisation, and the tile is written back once at the end.
+//
+// Design of raywalk_scan: a warp owns a 32 x 32 sub-tile. A block of
+// four warps holds a 64 x 64 square, a quadrant a warp, and shares
+// nothing else: the kernel has no block barrier and no shared-memory
+// queue. The warp takes the scan's rays 32 at a time, lane l ray base + l
+// (fetched a batch ahead), tests it against the map and then its sub-tile
+// with the same closed forms, and ballots. Each lane whose ray touches
+// the sub-tile precomputes the ray's walk through it in three words (its
+// first cell, the major and minor steps, a 31-bit mask of where the
+// minor coordinate steps, the slot count and the last in-map slot), and
+// a shuffle gives lane j the payload of the j-th such ray. The warp then
+// walks those rays in order: lane l takes slot lo + l (a ray crosses a
+// 32-wide sub-tile in at most 32 slots, and never visits a cell twice),
+// reads ray j's payload from lane j by __shfl_sync, finds its cell (a
+// popcount of the mask) and adds to it, with __syncwarp() between rays so
+// that each cell gets its adds in ray order; ray j + 1's cell is computed
+// while ray j's read-add-write is in flight. Rows of the sub-tile are
+// padded to 33 floats, so rays along either axis touch 32 distinct banks.
+// With the clip every warp loads, clips and stores its sub-tile; without
+// it a warp loads its sub-tile when the first ray that touches it
+// arrives, and a warp that no ray touches reads and writes nothing.
+//
+// What bounds raywalk_scan on an H100: the robot's warp. Every ray of the
+// scan crosses its sub-tile, and for each the warp runs a dependent chain
+// on one scheduler: the ray's tests and walk layout (six integer
+// divisions, spread over the lanes), its broadcast, and a shared-memory
+// read-add-write one __syncwarp apart. The robot's cell alone takes one
+// in-order add from every ray. It replaces a design in which a block of
+// 128 threads owned a 64 x 64 tile, compacted the rays through a
+// shared-memory queue and walked them one block barrier apart, with at
+// most half its threads holding a slot (0.174 ms a clipped scan, PERF.md).
 //
 // Integer division: the closed forms divide negative numerators, and JAX's
 // '//' floors while C++ '/' truncates toward zero, so floordiv() is used.
@@ -117,6 +141,42 @@ __device__ __forceinline__ void interval(const Ray& r, int loM, int hiM,
   khi = min(min(r.dM, bM), k_ub);
 }
 
+// One ray's slot sub-interval [klo, khi] inside the box [x0, x1] x [y0,
+// y1] (empty when klo > khi), its last in-map slot kend and its Bresenham
+// walk: the slot interval clipped to the map (the closed form of
+// ray_descriptors, tail-capped at K) and then to the box. valid: the ray's
+// mask bit.
+__device__ __forceinline__ void clip_ray(int sx, int sy, int ex, int ey,
+                                         bool valid, int W, int H, int K,
+                                         int x0, int y0, int x1, int y1,
+                                         Ray& ray, int& klo, int& khi,
+                                         int& kend) {
+  klo = 1;
+  khi = 0;
+  kend = 0;
+  ray = {};
+  // the ray's cells lie in the bounding box of its two end cells
+  if (!valid || max(sx, ex) < x0 || min(sx, ex) > x1 || max(sy, ey) < y0 ||
+      min(sy, ey) > y1) {
+    return;
+  }
+  ray = ray_from_ends(sx, sy, ex, ey);
+  // both closed forms at once (their divisions overlap)
+  int k_in, k_out, t_lo, t_hi;
+  if (ray.steep) {
+    interval(ray, 0, H - 1, 0, W - 1, k_in, k_out);
+    interval(ray, y0, y1, x0, x1, t_lo, t_hi);
+  } else {
+    interval(ray, 0, W - 1, 0, H - 1, k_in, k_out);
+    interval(ray, x0, x1, y0, y1, t_lo, t_hi);
+  }
+  k_out = min(k_out, K - 1);  // fixed-slot tail truncation
+  if (k_in > k_out) return;
+  klo = max(k_in, t_lo);
+  khi = min(k_out, t_hi);
+  kend = k_out;
+}
+
 // The rays of one batch (RW_THREADS consecutive rays of a scan) that touch
 // the block's tile, compacted in ray order: each one's slot sub-interval
 // [lo, hi] inside the tile, its last in-map slot and its Bresenham walk.
@@ -140,35 +200,19 @@ __device__ __forceinline__ int compact_rays(const int32_t* __restrict__ ends,
   const int x1 = x0 + RW_TILE - 1, y1 = y0 + RW_TILE - 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = base + tid;
-  int klo = 1, khi = 0, kend = 0;
-  Ray ray = {};
-  if (r < R && mask[r]) {
+  const bool valid = r < R && mask[r];
+  int sx = 0, sy = 0, ex = 0, ey = 0;
+  if (valid) {
     const int32_t* e = ends + (size_t)r * 4;
-    const int sx = e[0], sy = e[1], ex = e[2], ey = e[3];
-    // the ray's cells lie in the bounding box of its two end cells
-    if (max(sx, ex) >= x0 && min(sx, ex) <= x1 && max(sy, ey) >= y0 &&
-        min(sy, ey) <= y1) {
-      ray = ray_from_ends(sx, sy, ex, ey);
-      int k_in, k_out;
-      if (ray.steep) {
-        interval(ray, 0, H - 1, 0, W - 1, k_in, k_out);
-      } else {
-        interval(ray, 0, W - 1, 0, H - 1, k_in, k_out);
-      }
-      k_out = min(k_out, K - 1);  // fixed-slot tail truncation
-      if (k_in <= k_out) {
-        int t_lo, t_hi;
-        if (ray.steep) {
-          interval(ray, y0, y1, x0, x1, t_lo, t_hi);
-        } else {
-          interval(ray, x0, x1, y0, y1, t_lo, t_hi);
-        }
-        klo = max(k_in, t_lo);
-        khi = min(k_out, t_hi);
-        kend = k_out;
-      }
-    }
+    sx = e[0];
+    sy = e[1];
+    ex = e[2];
+    ey = e[3];
   }
+  Ray ray;
+  int klo, khi, kend;
+  clip_ray(sx, sy, ex, ey, valid, W, H, K, x0, y0, x1, y1, ray, klo, khi,
+           kend);
   const bool hit = klo <= khi;
   const unsigned ballot = __ballot_sync(0xffffffffu, hit);
   if (lane == 0) q.warp_count[warp] = __popc(ballot);
@@ -262,40 +306,190 @@ raywalk_build_kernel(const int32_t* __restrict__ ends,
   }
 }
 
-// One scan on a carried grid, in place. With has_clip every block loads
-// its tile, walks, clips and stores it: the clip covers the whole grid.
-// Without it, a block loads its tile only when the first ray that touches
-// it arrives, and a block that no ray touches returns having read and
-// written nothing.
-__global__ void __launch_bounds__(RW_THREADS)
+constexpr int RS_SUB = 32;               // a warp's sub-tile side
+constexpr int RS_PITCH = RS_SUB + 1;     // padded row of the sub-tile
+constexpr int RS_WARPS = 4;              // 2 x 2 sub-tiles a block
+constexpr int RS_THREADS = 32 * RS_WARPS;
+constexpr unsigned RS_ALL = 0xffffffffu;
+
+// Copy the warp's sub-tile in from the grid (zeros past the map's edge):
+// lane l takes column y0 + l of every row.
+__device__ __forceinline__ void load_sub(const float* __restrict__ grid,
+                                         int W, int H, int x0, int y0,
+                                         float* tile) {
+  const int lane = threadIdx.x & 31, gy = y0 + lane;
+#pragma unroll 8
+  for (int i = 0; i < RS_SUB; ++i) {
+    const int gx = x0 + i;
+    tile[i * RS_PITCH + lane] =
+        (gx < W && gy < H) ? grid[(size_t)gx * H + gy] : 0.f;
+  }
+  __syncwarp();
+}
+
+// A ray's walk through the warp's sub-tile, as the lane that tested it
+// precomputes it for the broadcast. Slot lo + l lies at sub-tile offset
+// base + step_major * l + step_minor * m(l), where m(l), the minor
+// coordinate's steps after slot lo, is the count of set bits of `steps`
+// below bit l: bit l is set when the Bresenham walk's minor coordinate
+// steps between slots lo + l and lo + l + 1 (by at most one, as dm <= dM).
+struct SubRay {
+  int key;         // base | (last in-map slot - lo) << 16 | slot count << 24
+  unsigned steps;  // bit l: the minor coordinate steps after slot lo + l
+  int step;        // step_major (low 16 bits) | step_minor << 16
+};
+
+__device__ __forceinline__ SubRay sub_ray(const Ray& r, int lo, int hi,
+                                          int end, int x0, int y0) {
+  const int dM = max(r.dM, 1);
+  const int num = lo * r.dm + r.c;
+  const int q = num / dM;
+  const int rem = num - q * dM;  // (lo dm + c) mod dM
+  // the 31 step bits as four independent chains of the Bresenham error,
+  // each started 8 slots on
+  const int e8 = (8 * r.dm) % dM;
+  int start = rem;
+  unsigned steps = 0;
+#pragma unroll
+  for (int part = 0; part < 4; ++part) {
+    int err = start;
+    start += e8;
+    if (start >= dM) start -= dM;
+#pragma unroll
+    for (int l = part * 8; l < min(part * 8 + 8, RS_SUB - 1); ++l) {
+      err += r.dm;
+      if (err >= dM) {
+        err -= dM;
+        steps |= 1u << l;
+      }
+    }
+  }
+  const int major = r.sM + r.sgM * lo, minor = r.sm + r.sgm * q;
+  const int x = r.steep ? minor : major, y = r.steep ? major : minor;
+  SubRay w;
+  // the last in-map slot's offset is capped at 32 (past the sub-tile)
+  w.key = ((x - x0) * RS_PITCH + (y - y0)) | min(end - lo, RS_SUB) << 16 |
+          (hi - lo + 1) << 24;
+  w.steps = steps;
+  const int step_major = (r.steep ? 1 : RS_PITCH) * r.sgM;
+  const int step_minor = (r.steep ? RS_PITCH : 1) * r.sgm;
+  w.step = (int)((unsigned)step_major & 0xffffu |
+                 (unsigned)step_minor << 16);
+  return w;
+}
+
+// Lane l's cell of the ray whose payload lane j holds: its sub-tile
+// offset (below 32 x 33), with bit 11 set where the add is +log4 (the
+// ray's last in-map slot); -1 where the ray has no slot lo + l.
+__device__ __forceinline__ int cell_code(const SubRay& ray_j, int j) {
+  const int lane = threadIdx.x & 31;
+  const int key = __shfl_sync(RS_ALL, ray_j.key, j);
+  const unsigned steps = __shfl_sync(RS_ALL, ray_j.steps, j);
+  const int step = __shfl_sync(RS_ALL, ray_j.step, j);
+  const int m = __popc(steps & ((1u << lane) - 1u));
+  const int at = (key & 0xffff) + (short)step * lane + (step >> 16) * m;
+  const int code = at | (lane == ((key >> 16) & 63)) << 11;
+  return lane < (key >> 24) ? code : -1;
+}
+
+// The position of the (lane + 1)-th set bit of `bits`, for a lane below
+// its count of set bits: the last position with at most `lane` set bits
+// below it, by binary search.
+__device__ __forceinline__ int nth_set_bit(unsigned bits) {
+  const int lane = threadIdx.x & 31;
+  int pos = 0;
+#pragma unroll
+  for (int b = 16; b > 0; b >>= 1) {
+    if (__popc(bits & ((1u << (pos + b)) - 1u)) <= lane) pos += b;
+  }
+  return pos;
+}
+
+// One scan on a carried grid, in place. A warp owns a 32 x 32 sub-tile
+// (see the design note above). With has_clip every warp loads its
+// sub-tile, walks, clips and stores it: the clip covers the whole grid.
+// Without it, a warp loads its sub-tile only when the first ray that
+// touches it arrives, and a warp that no ray touches returns having read
+// and written nothing.
+__global__ void __launch_bounds__(RS_THREADS)
 raywalk_scan_kernel(const int32_t* __restrict__ ends,
                     const uint8_t* __restrict__ mask, int R, int W, int H,
                     int K, float log4, float clip, int has_clip,
                     float* __restrict__ grid) {
-  __shared__ float tile[RW_TILE][RW_TILE];
-  __shared__ RayQueue q;
-  const int x0 = blockIdx.x * RW_TILE, y0 = blockIdx.y * RW_TILE;
+  __shared__ float tiles[RS_WARPS][RS_SUB * RS_PITCH];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int x0 = blockIdx.x * 2 * RS_SUB + (warp & 1) * RS_SUB;
+  const int y0 = blockIdx.y * 2 * RS_SUB + (warp >> 1) * RS_SUB;
+  if (x0 >= W || y0 >= H) return;  // warp-uniform; no block barrier here
+  const int x1 = x0 + RS_SUB - 1, y1 = y0 + RS_SUB - 1;
+  float* tile = tiles[warp];
   bool loaded = false;
   if (has_clip) {
-    load_tile(grid, W, H, x0, y0, tile);
+    load_sub(grid, W, H, x0, y0, tile);
     loaded = true;
   }
-  for (int base = 0; base < R; base += RW_THREADS) {
-    const int total = compact_rays(ends, mask, base, R, W, H, K, x0, y0, q);
-    // total is the same in every thread, so this branch is block-uniform
-    if (total > 0 && !loaded) {
-      load_tile(grid, W, H, x0, y0, tile);
-      loaded = true;
+
+  // lane l's ray of the current batch, fetched one batch ahead
+  bool valid = lane < R && mask[lane];
+  int4 e = make_int4(0, 0, 0, 0);
+  if (lane < R) {
+    const int32_t* p = ends + (size_t)lane * 4;
+    e = make_int4(p[0], p[1], p[2], p[3]);
+  }
+  for (int base = 0; base < R; base += 32) {
+    const int next = base + 32 + lane;
+    bool valid_next = false;
+    int4 e_next = make_int4(0, 0, 0, 0);
+    if (next < R) {
+      const int32_t* p = ends + (size_t)next * 4;
+      e_next = make_int4(p[0], p[1], p[2], p[3]);
+      valid_next = mask[next];
     }
-    walk_rays(total, q, tile, x0, y0, log4);
+    Ray ray;
+    int klo, khi, kend;
+    clip_ray(e.x, e.y, e.z, e.w, valid, W, H, K, x0, y0, x1, y1, ray, klo,
+             khi, kend);
+    unsigned hits = __ballot_sync(RS_ALL, klo <= khi);
+    if (hits != 0) {
+      if (!loaded) {
+        load_sub(grid, W, H, x0, y0, tile);
+        loaded = true;
+      }
+      const SubRay mine = klo <= khi ? sub_ray(ray, klo, khi, kend, x0, y0)
+                                     : SubRay{0, 0u, 0};
+      // lane j takes the payload of the batch's j-th ray that hits the
+      // sub-tile (rays in order), so ray j's broadcast comes from lane j
+      const int n = __popc(hits);
+      const int from = nth_set_bit(hits);
+      SubRay ranked;
+      ranked.key = __shfl_sync(RS_ALL, mine.key, from);
+      ranked.steps = __shfl_sync(RS_ALL, mine.steps, from);
+      ranked.step = __shfl_sync(RS_ALL, mine.step, from);
+      // the adds in ray order; ray j + 1's cell is computed while ray j's
+      // read-add-write is in flight
+      int c = cell_code(ranked, 0);
+#pragma unroll
+      for (int j = 0; j < RS_SUB; ++j) {
+        if (j == n) break;  // warp-uniform
+        const float old = c >= 0 ? tile[c & 0x7ff] : 0.f;
+        const int c_next = cell_code(ranked, (j + 1) & 31);
+        const float sum = __fadd_rn(old, (c & 0x800) ? log4 : -log4);
+        if (c >= 0) tile[c & 0x7ff] = sum;
+        __syncwarp();
+        c = c_next;
+      }
+    }
+    valid = valid_next;
+    e = e_next;
   }
   if (!loaded) return;
-  // each thread clips and stores the cells it owns: no barrier needed
-  for (int e = threadIdx.x; e < RW_TILE * RW_TILE; e += RW_THREADS) {
-    const int gx = x0 + e / RW_TILE, gy = y0 + e % RW_TILE;
-    float v = tile[e / RW_TILE][e % RW_TILE];
+  // lane l clips and stores column y0 + l (the walk ended with __syncwarp)
+  const int gy = y0 + lane;
+  if (gy >= H) return;
+  for (int i = 0; i < RS_SUB && x0 + i < W; ++i) {
+    float v = tile[i * RS_PITCH + lane];
     if (has_clip) v = fminf(fmaxf(v, -clip), clip);
-    if (gx < W && gy < H) grid[(size_t)gx * H + gy] = v;
+    grid[(size_t)(x0 + i) * H + gy] = v;
   }
 }
 
@@ -326,8 +520,9 @@ extern "C" int slam_raywalk_scan(const void* ends, const void* mask, int R,
                                  int has_clip, void* grid, void* stream) {
   if (W <= 0 || H <= 0) return 0;
   if (R < 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  dim3 blocks((W + RW_TILE - 1) / RW_TILE, (H + RW_TILE - 1) / RW_TILE);
-  raywalk_scan_kernel<<<blocks, RW_THREADS, 0, (cudaStream_t)stream>>>(
+  dim3 blocks((W + 2 * RS_SUB - 1) / (2 * RS_SUB),
+              (H + 2 * RS_SUB - 1) / (2 * RS_SUB));
+  raywalk_scan_kernel<<<blocks, RS_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ends, (const uint8_t*)mask, R, W, H, K, log4, clip,
       has_clip, (float*)grid);
   return (int)cudaGetLastError();

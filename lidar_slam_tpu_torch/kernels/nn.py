@@ -4,13 +4,18 @@ nn_argmin launches the kernel for CUDA tensors; for CPU tensors it runs the
 kernel's plain version (ops/nn.nearest_neighbors plus a gather). There is
 no fallback from a CUDA tensor to the plain version: a build or launch
 failure raises.
+
+nn_argmin_rounded repeats the kernel's arithmetic op by op, so the
+kernel's indices equal it exactly where the plain version's matmul may
+round a cross term differently. It is the kernel's exactness oracle for
+the tests and chip_smoke.py, and no path of the port calls it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.nn import gather_points, nearest_neighbors
+from ..ops.nn import BIG, gather_points, nearest_neighbors
 from . import build
 
 
@@ -61,3 +66,26 @@ def nn_argmin(src: torch.Tensor, tgt: torch.Tensor,
 
 
 nn_argmin.launches = 0
+
+
+def nn_argmin_rounded(src: torch.Tensor, tgt: torch.Tensor,
+                      tgt_mask: torch.Tensor | None = None):
+    """(idx, matched) as the kernel computes them, on any device.
+
+    Each product and sum is its own float32 op, in the kernel's order:
+    |t|^2 = (tx*tx + ty*ty) + tz*tz, s.t = (sx*tx + sy*ty) + sz*tz and
+    d = |t|^2 - 2 (s.t); masked targets are replaced by 1e30 and the row
+    argmin takes the first minimum. It holds the (B, N, M) distances in
+    memory, several times over."""
+    D = src.shape[-1]
+    t2 = tgt[..., 0] * tgt[..., 0]
+    for k in range(1, D):
+        t2 = t2 + tgt[..., k] * tgt[..., k]
+    dot = src[..., :, None, 0] * tgt[..., None, :, 0]
+    for k in range(1, D):
+        dot = dot + src[..., :, None, k] * tgt[..., None, :, k]
+    d = t2[..., None, :] - 2.0 * dot
+    if tgt_mask is not None:
+        d = torch.where(tgt_mask[..., None, :], d, torch.full_like(d, BIG))
+    idx = torch.argmin(d, dim=-1).to(torch.int32)
+    return idx, gather_points(tgt, idx)

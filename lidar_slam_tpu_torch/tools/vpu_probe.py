@@ -13,8 +13,9 @@ work (ops/raywalk.py _make_kernel_v8 emit()) to decompose its cost:
   ray2    the same prologue + two visits
 
 Each mode runs in one thread block, so on one SM: the K2 map kernel
-(raywalk_scan) walks the robot's tile, which nearly every ray crosses, in
-one block too. Each mode is timed at 8 and 40 repetitions of m1 pairs; the
+(raywalk_scan) walks the robot's 32 x 32 sub-tile, which nearly every ray
+crosses, with one warp, and that warp bounds it. Each mode is timed at 8
+and 40 repetitions of m1 pairs; the
 slope between them is the marginal cost (launch overhead cancels): ns per
 visit for the pair modes, ns per ray for the ray modes. per-ray setup =
 2 slope(ray1) - slope(ray2). The kernel tests every cell of a visit's

@@ -14,7 +14,7 @@ import torch
 
 from lidar_slam_tpu_torch.config import MapConfig
 from lidar_slam_tpu_torch.kernels import probes
-from lidar_slam_tpu_torch.kernels.nn import nn_argmin
+from lidar_slam_tpu_torch.kernels.nn import nn_argmin, nn_argmin_rounded
 from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build, raywalk_scan
 from lidar_slam_tpu_torch.models import occupancy
 from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
@@ -76,6 +76,49 @@ def test_nn_argmin_exact_tie_lowest_index(dev):
     mask = torch.tensor([[True, False, True, True, True]], device=dev)
     idx, matched = nn_argmin(src, tgt, mask)
     assert int(idx[0, 0]) == 3 and torch.equal(matched[0, 0], tgt[0, 3])
+
+
+PLANTED = (3, 40, 700, 1050, 2100)  # lanes 3, 8, 28, 26, 20; 2100 a stage on
+
+
+@pytest.mark.parametrize("B,N,M,D", [
+    (1, 1081, 1081, 3), (64, 1081, 1081, 3), (3, 37, 33, 3),
+    (2, 300, 2500, 3), (2, 500, 1081, 2),
+])
+def test_nn_argmin_equals_rounded(dev, B, N, M, D):
+    """Indices equal to the kernel's arithmetic op by op, matched bit for
+    bit. Copies of one target at PLANTED indices (other lanes, another
+    shared-memory stage) and sources exactly on it, spread over the rows
+    of every block: the lowest unmasked copy wins. The last pair of a
+    batch has every target masked: index 0."""
+    rng = np.random.default_rng(B * N + M + D)
+    src = rng.normal(0, 5, (B, N, D)).astype(np.float32)
+    tgt = rng.normal(0, 5, (B, M, D)).astype(np.float32)
+    planted = [j for j in PLANTED if j < M]
+    point = np.array([2.0, -1.0, 0.5][:D], np.float32)
+    tgt[:, planted] = point
+    src[:, ::7] = point
+    mask = rng.random((B, M)) > 0.2
+    mask[:, planted] = True
+    mask[0, planted[0]] = False  # pair 0: the second copy wins
+    if B > 1:
+        mask[-1] = False
+    s, t, m = (torch.from_numpy(a).to(dev) for a in (src, tgt, mask))
+    before = nn_argmin.launches
+    idx, matched = nn_argmin(s, t, m)
+    torch.cuda.synchronize()
+    assert nn_argmin.launches == before + 1
+    want, want_matched = nn_argmin_rounded(s, t, m)
+    assert int((idx != want).sum()) == 0
+    assert torch.equal(matched.view(torch.int32),
+                       want_matched.view(torch.int32))
+    got = idx.cpu().numpy()
+    if len(planted) > 1:
+        assert (got[0, ::7] == planted[1]).all()
+    if B > 2:
+        assert (got[1:-1, ::7] == planted[0]).all()
+    if B > 1:
+        assert (got[-1] == 0).all()
 
 
 def test_nn_argmin_rejects_bad_inputs(dev):
@@ -254,6 +297,78 @@ def test_update_map_and_scan_delta_take_the_kernel(dev):
     assert torch.equal(delta.cpu(), want)
     assert torch.equal(grid.cpu(), want.clamp(-20.0, 20.0))
     assert float(want.min()) < -20.0  # the delta is unclipped
+
+
+def _box(W, H):
+    """A map of W x H cells of 1 m: cell (i, j) at world (i, j)."""
+    return MapConfig(resolution=1.0, world_min_x=0.0, world_max_x=W - 1.0,
+                     world_min_y=0.0, world_max_y=H - 1.0)
+
+
+def _fan(rng, sx, sy, n, length):
+    """n rays from cell (sx, sy) in every direction, up to length cells."""
+    ang = rng.uniform(-np.pi, np.pi, n)
+    rad = rng.uniform(0.0, length, n)
+    return np.stack([np.full(n, sx), np.full(n, sy),
+                     np.rint(sx + rad * np.cos(ang)),
+                     np.rint(sy + rad * np.sin(ang))], -1)
+
+
+def _stress_case(case):
+    """(ends (R, 4) int32, mask, W, H, K) of one K2 stress case."""
+    rng = np.random.default_rng(sum(case.encode()))
+    W, H, K = 200, 170, 608
+    if case == "one_cell":  # the robot's sub-tile walks all 1,081 rays
+        W = H = 601
+        ends = _fan(rng, 300, 300, 1081, 420.0)
+    elif case in ("edge_31", "edge_32", "corner_31_32", "corner_32_31"):
+        # the robot on the last or first cell of a sub-tile (and of a
+        # 64-cell block at 64 + 31, 64 + 32)
+        off = {"edge_31": (31, 31), "edge_32": (32, 32),
+               "corner_31_32": (31, 32), "corner_32_31": (32, 31)}[case]
+        ends = np.concatenate([_fan(rng, 64 + off[0], 64 + off[1], 700, 90.0),
+                               _fan(rng, 96 + off[0], 32 + off[1], 381, 60.0)])
+    elif case == "exact_32":
+        # axis-aligned, steep and 45-degree rays of exactly 32 slots inside
+        # one sub-tile, both ways, and 33 slots across a sub-tile edge
+        x0, y0, rows = 64, 96, []
+        a, b = x0 + 31, y0 + 31
+        for i in range(32):
+            rows += [(x0, y0 + i, a, y0 + i), (a, y0 + i, x0, y0 + i),
+                     (x0 + i, y0, x0 + i, b), (x0 + i, b, x0 + i, y0),
+                     (x0, y0, a, b), (a, b, x0, y0),
+                     (x0, b, a, y0), (a, y0, x0, b),
+                     (x0 - 1, y0 + i, a, y0 + i), (x0 + i, y0, x0 + i, b + 1)]
+        ends = np.array(rows)
+    elif case == "ragged":  # W, H not multiples of 32; rays leave the map
+        W, H = 97, 75
+        ends = np.concatenate([_fan(rng, 48, 37, 600, 120.0),
+                               _fan(rng, 96, 0, 300, 80.0),
+                               _fan(rng, -5, 80, 181, 100.0)])
+    else:  # "small_k": tails truncated at K = 5 slots
+        K = 5
+        ends = _fan(rng, 100, 90, 1081, 60.0)
+    mask = rng.random(len(ends)) > 0.05
+    return (torch.as_tensor(ends, dtype=torch.int32), torch.as_tensor(mask),
+            W, H, K)
+
+
+@pytest.mark.parametrize("clip", [20.0, None])
+@pytest.mark.parametrize("case", [
+    "one_cell", "edge_31", "edge_32", "corner_31_32", "corner_32_31",
+    "exact_32", "ragged", "small_k",
+])
+def test_raywalk_scan_stress(dev, case, clip):
+    """The warp-owned sub-tile walk at its edges, bit-exact against the
+    scatter path on CPU copies, on a random carried grid beyond the clip;
+    with the clip and without it (the lazy-load path)."""
+    ends, mask, W, H, K = _stress_case(case)
+    cfg = _box(W, H)
+    init = torch.as_tensor(np.random.default_rng(W + H).uniform(
+        -25, 25, (W, H)), dtype=torch.float32)
+    got = _scan_check(dev, ends, mask, cfg, K, init, clip)
+    before = init if clip is None else init.clamp(-clip, clip)
+    assert int((got != before).sum()) > 50
 
 
 def test_raywalk_scan_rejects_bad_inputs(dev):
