@@ -14,14 +14,19 @@ first failure and catches nothing):
      arithmetic op by op in PyTorch) and matched points bit-equal, and
      within the index-flip gate of its plain version;
   4. raywalk_build kernel against its plain version (the scatter path, run
-     on CPU copies of the same ray end cells) on 32 scans: bit-exact;
+     on CPU copies of the same ray end cells) on 32 scans: bit-exact; its
+     binning kernel's per-owner lists equal to the plain lists;
   5. the main path, run_slam(mode="gtsam", device="cuda"), on the
      dataset-20-scale synthetic log (4,956 scans x 1,081 rays, seed 21):
      once to warm up, once timed with the kernels' launch counters reset
      just before it; stage seconds, ICP/loop/LM counts, map cell counts
      and launch counts; then that run's map (built by raywalk_build)
      against the scatter path on CPU copies of its ray end cells,
-     bit-exact, and both map engines timed on the GPU;
+     bit-exact, and both map engines timed on the GPU; the binning
+     kernel's per-owner lists of that run's rays equal, entry for entry, to
+     the plain lists (raywalk_bins_plain, plain PyTorch on the card);
+     raywalk_build's owner side, list entries, hottest owner's crossings
+     and binning time;
   6. the same pipeline on a small log on the GPU and on the CPU (plain
      versions) must agree;
   7. raywalk_scan kernel against its plain version at the online path's
@@ -50,10 +55,11 @@ first failure and catches nothing):
  11. device time a launch from torch.profiler (self CUDA time over the
      launches) beside the CUDA-event time, for raywalk_scan over 100
      clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
-     pairs; and 100 online steps of a fresh stream (after 20 unprofiled
-     ones): device time and kernel launches a step, and the share of
-     raywalk_scan and nn_argmin (last, so the profiler cannot slow the
-     timings before it).
+     pairs; raywalk_build's binning and walk kernels over three main-path
+     builds, and the walk's ns a crossing of the hottest owner; and 100
+     online steps of a fresh stream (after 20 unprofiled ones): device
+     time and kernel launches a step, and the share of raywalk_scan and
+     nn_argmin (last, so the profiler cannot slow the timings before it).
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2 and K4; the
@@ -61,7 +67,7 @@ tools' run in [10] for P1-P9), its error against its plain version, its,
 the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
-nn_argmin and raywalk_scan with their profiler device times), and
+K1, K2 and K4 with their profiler device times), and
 {"ok": true, "device": ...}.
 """
 
@@ -146,12 +152,16 @@ def device_kernels(fn, reps: int) -> dict:
 def device_ms(fn, reps: int, kernel: str):
     """Device ms a launch of the kernels whose name holds `kernel` over
     reps calls of fn (after one unprofiled call); None if the trace shows
-    none."""
+    none in three profiled runs (on an H100 one trace in a run of this
+    script came back without nn_argmin's events at 64 pairs)."""
     fn()
     torch.cuda.synchronize()
-    hits = [v for k, v in device_kernels(fn, reps).items() if kernel in k]
-    us, count = sum(v[0] for v in hits), sum(v[1] for v in hits)
-    return us / count / 1e3 if count and us > 0 else None
+    for _ in range(3):
+        hits = [v for k, v in device_kernels(fn, reps).items() if kernel in k]
+        us, count = sum(v[0] for v in hits), sum(v[1] for v in hits)
+        if count and us > 0:
+            return us / count / 1e3
+    return None
 
 
 def nn_check(s, t, tm, reps: int):
@@ -401,7 +411,10 @@ def main() -> int:
     from lidar_slam_tpu_torch.config import MapConfig, SlamConfig
     from lidar_slam_tpu_torch.kernels import build
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
-    from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build, raywalk_scan
+    from lidar_slam_tpu_torch.kernels.raywalk import (OWNER_SIDE, raywalk_bins,
+                                                      raywalk_bins_plain,
+                                                      raywalk_build,
+                                                      raywalk_scan)
     from lidar_slam_tpu_torch.models import (occupancy, odometry, online,
                                              scan_matching, slam)
     from lidar_slam_tpu_torch.ops import icp as icp_ops
@@ -444,11 +457,19 @@ def main() -> int:
     diff = float((g_k.cpu() - g_p).abs().max())
     same_final = torch.equal(occupancy.finalize_grid(g_k).cpu(),
                              occupancy.finalize_grid(g_p))
+    b_k, e_k = raywalk_bins(ends32, masks20[:32], cfg.map, K20)
+    b_p, e_p = raywalk_bins_plain(ends32.cpu(), masks20[:32].cpu(), cfg.map,
+                                  K20)
+    same_bins = torch.equal(b_k.cpu(), b_p) and torch.equal(e_k.cpu(), e_p)
     print(f"[4] raywalk_build vs plain (CPU scatter), 32 scans, K={K20}: "
           f"max |diff| {diff}, finalize_grid equal {same_final}, "
-          f"nonzero cells {int((g_p != 0).sum())}", flush=True)
+          f"nonzero cells {int((g_p != 0).sum())}; binning kernel's lists "
+          f"({OWNER_SIDE} x {OWNER_SIDE} owners, {int(b_p[-1])} entries) "
+          f"equal to the plain lists {same_bins}", flush=True)
     if diff != 0.0 or not same_final or int((g_p != 0).sum()) < 1000:
         fail("raywalk_build disagrees with the scatter path")
+    if not same_bins or int(b_p[-1]) < 1000:
+        fail("the binning kernel's lists differ from the plain lists")
 
     # 5. the main path at dataset-20 scale
     args = synced(io.synthetic_dataset(n_steps=4956, n_rays=1081, seed=21),
@@ -511,6 +532,28 @@ def main() -> int:
           f"{rw_bound[0]:.5f} ms ({rw_bound[1]})", flush=True)
     if diff_main != 0.0 or not same_grid:
         fail("the main path's map disagrees with the scatter path")
+    # the binning kernel's lists at the main path's shapes (ray indices
+    # near 5.4 M, cursors near 1.2e8) against the plain lists, computed by
+    # plain PyTorch on the card (on the host it takes minutes)
+    bounds_main, entries_main = raywalk_bins(ends_main, masks21, cfg.map, K)
+    want_bounds, want_entries = raywalk_bins_plain(ends_main, masks21,
+                                                   cfg.map, K)
+    same_bins_main = (torch.equal(bounds_main, want_bounds)
+                      and torch.equal(entries_main, want_entries))
+    del want_bounds, want_entries, entries_main
+    per_owner = (bounds_main[1:] - bounds_main[:-1]).cpu()
+    hot = int(per_owner.max())
+    bins_ms = cuda_ms(lambda: raywalk_bins(ends_main, masks21, cfg.map, K), 3)
+    print(f"[5] raywalk_build owners {OWNER_SIDE} x {OWNER_SIDE}: "
+          f"{int(bounds_main[-1])} list entries (ray-owner crossings), "
+          f"equal to the plain lists {same_bins_main}; hottest owner {hot} "
+          f"crossings ({rw_ms * 1e6 / hot:.1f} ns a crossing of the whole "
+          f"build's CUDA-event time), {int((per_owner > 0).sum())}/"
+          f"{per_owner.numel()} owners touched; binning (count, scan, fill) "
+          f"{bins_ms:.3f} ms", flush=True)
+    if not same_bins_main:
+        fail("the binning kernel's lists differ from the plain lists on the "
+             "main path's rays")
 
     # 6. small log: GPU (kernels) against CPU (plain versions)
     small = synced(io.synthetic_dataset(n_steps=120, n_rays=361, seed=3),
@@ -717,6 +760,23 @@ def main() -> int:
     def fmt(v):
         return "not measured" if v is None else f"{v:.4f} ms"
 
+    def main_build():
+        raywalk_build(ends_main, masks21, cfg.map, K)
+
+    # a build launches the binning kernel twice (count, fill)
+    bin_launch = device_ms(main_build, 3, "raywalk_bin_kernel")
+    k1_ms = {"bin": None if bin_launch is None else 2 * bin_launch,
+             "walk": device_ms(main_build, 3, "raywalk_walk_kernel")}
+    dev_k1 = (None if None in k1_ms.values()
+              else k1_ms["bin"] + k1_ms["walk"])
+    per_crossing = ("" if k1_ms["walk"] is None else
+                    f", {k1_ms['walk'] * 1e6 / hot:.1f} ns a crossing of "
+                    f"the hottest owner ({hot})")
+    print(f"[11] raywalk_build under torch.profiler, 3 main-path builds: "
+          f"binning (count and fill passes) {fmt(k1_ms['bin'])}, walk "
+          f"{fmt(k1_ms['walk'])} a build{per_crossing}; CUDA events "
+          f"{rw_ms:.3f} ms a build", flush=True)
+
     print(f"[11] device time a launch (torch.profiler) vs CUDA events: "
           f"raywalk_scan, 100 clipped scans, {fmt(dev_scan)} vs "
           f"{scan_ms:.4f} ms; nn_argmin B=1, 200 launches, {fmt(dev_nn1)} "
@@ -766,7 +826,9 @@ def main() -> int:
          + launches_on["raywalk_build"],
          "max_abs_err": max(diff, diff_main, diff_k1),
          "ms": rw_ms, "plain_ms": rw_plain_ms, "bound_ms": rw_bound[0],
-         "bound_by": rw_bound[1], "library_ms": None},
+         "bound_by": rw_bound[1], "library_ms": None, "device_ms": dev_k1,
+         "device_ms_bin": k1_ms["bin"], "device_ms_walk": k1_ms["walk"],
+         "owner_side": OWNER_SIDE, "hot_crossings": hot},
         {"name": "raywalk_scan", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
          "replaces": "lidar_slam_tpu/ops/raywalk.py:461",

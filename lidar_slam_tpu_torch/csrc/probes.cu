@@ -44,7 +44,7 @@
 // rows [8b, 8b + 8) (the TPU tile's row band), thread (s, l) the band's
 // cells in row 8b + s whose column is l mod 128; the block reads the
 // updates 1,024 at a time, compacts those that touch its band in order
-// (ballot + warp counts, as compact_rays in raywalk.cu), and each owner
+// (a ballot and per-warp counts), and each owner
 // applies its cells' adds in that order. P9: one block of 1,024 threads,
 // eight positions of the (64, 128) tile each; the word table is read from
 // device memory (one broadcast load per emit) or, in mode fullv, staged

@@ -1,9 +1,10 @@
 // Two ray-walk kernels of the log-odds map, exact against the scatter path:
 //
-// raywalk_build: the whole map build (every scan, every ray) in one launch.
-// Replaces lidar_slam_tpu/ops/raywalk.py::_make_kernel_v11 (launched by
-// _build_fused from build_logodds_raywalk, the TPU default), and serves the
-// domain of the v1 kernel in raywalk_legacy.py for K > 704: it takes an
+// raywalk_build: the whole map build (every scan, every ray) in three
+// launches, a count and a fill of per-owner ray lists and a walk of those
+// lists. Replaces lidar_slam_tpu/ops/raywalk.py::_make_kernel_v11 (launched
+// by _build_fused from build_logodds_raywalk, the TPU default), and serves
+// the domain of the v1 kernel in raywalk_legacy.py for K > 704: it takes an
 // optional init grid and has no cap on K or the map size.
 //
 // raywalk_scan: one scan's walk on a carried grid, in place, with an
@@ -30,25 +31,56 @@
 // (ops/raywalk.py) carries over from the TPU design; its packed visit words
 // and SMEM page layouts were Mosaic encodings and are not used.
 //
-// What bounds raywalk_build on an H100: the grid (1201 x 1201 float32 = 5.8 MB on the
-// main path) cannot live in one SM's shared memory (227 KB), and a
-// ray-parallel atomicAdd walk would lose the ray order the exactness needs.
-// The work itself is small (~10^8 cell updates at dataset-20 scale); the
-// cost is the per-ray interval test every block repeats, and the barrier
-// after each ray that touches the block's tile.
+// What bounds raywalk_build on an H100: not bytes (the 5.8 MB grid and the
+// 86 MB of ray ends at the main path's 4,956 x 1,081 rays) and not adds
+// (1.29 G visits), but the longest chain of in-order adds that one owner of
+// a map region must make. The grid cannot live in one SM's shared memory,
+// and a ray-parallel atomicAdd walk would lose the ray order the exactness
+// needs, so map regions have owners that walk their rays in order. On the
+// main path (chip_smoke.py [5]) 16 x 16 owners are crossed 117 M times in
+// all and the hottest one 433,659 times; the walk of that one owner's list
+// is most of the build's time (PERF.md gives the times). Owners of 32 x 32
+// cross fewer times in all but 0.66 M times at the hottest, and built the
+// map more slowly on an H100.
 //
-// Design of raywalk_build: thread blocks own map tiles. Block (bx, by)
-// keeps the 64 x 64 tile at x0 = 64 bx, y0 = 64 by in shared memory (16
-// KB), loaded once from the grid (zeros or an init grid). For each scan,
-// it takes the rays 128 at a time: each thread computes one ray's slot
-// interval clipped to the map (the closed form of ray_descriptors) and
-// then to the tile (the same closed form with the tile's bounds); the rays
-// with a non-empty sub-interval are compacted in order into shared memory.
-// The block then walks them in order: thread t adds to the cell at slot
-// k_lo + t (one ray never visits a cell twice, and a ray crosses a 64-cell
-// tile in at most 64 slots), with a barrier between rays. After the scan
-// the tile is clipped. Tiles never interact, so there is no grid-wide
-// synchronisation, and the tile is written back once at the end.
+// Design of raywalk_build, in three launches:
+//  1. bin, count pass. A warp takes a chunk of consecutive rays (in (scan,
+//     ray) order), 32 at a time. Each lane computes its ray's in-map slot
+//     interval once (clip_ray against the map) and enumerates the owners
+//     the ray crosses, in increasing owner id (ox * OH + oy): for each
+//     owner column ox between the ray's first and last x, the closed form
+//     gives the ray's slots in that column, and its first and last cell
+//     there give the owner rows, which the ray crosses every one of. The
+//     warp merges its lanes' owner sequences: each round takes the smallest
+//     current owner over the lanes (__reduce_min_sync) and the lanes on it
+//     (a ballot); the count of (chunk, owner) grows by their number.
+//  2. An exclusive scan of the (owner, chunk) count matrix, owner-major,
+//     gives each (owner, chunk) its first list position (torch.cumsum in
+//     the wrapper, with one host read of the total).
+//  3. bin, fill pass: the same merge, writing the global ray index s R + r
+//     at the (owner, chunk) cursor plus the lane's rank among the lanes on
+//     that owner (lower lanes first). Chunks, batches and lanes are in ray
+//     order, so each owner's list is in (scan, ray) order, with no atomic.
+//  4. walk. A block owns a 16 x 16 sub-tile (an owner) and reads only its
+//     own list, 32 entries a batch. Three feeder warps prepare the batches
+//     in turn: lane l takes entry base + l, fetches its ray ends (a slot's
+//     next batch is fetched while this one is prepared), clips the ray to
+//     the sub-tile (clip_ray; every entry crosses it), lays out its walk
+//     as raywalk_scan does (sub_ray) and writes the cells of its slots,
+//     two rays a pass, into row j of the batch (ray j's cell of slot
+//     lo + l in column l), with a bit for each ray that ends its scan in
+//     the list. A ring of three batch slots in shared memory passes them to
+//     the walker warp by named barriers (bar.arrive by the writer, bar.sync
+//     by the reader; two warps a barrier). The walker loads the sub-tile
+//     and walks the batches in order, lane l adding to its column's cell of
+//     each ray, one __syncwarp a ray, reading ray j + 1's row while ray j's
+//     read-add-write is in flight: its chain holds no tests, divisions or
+//     shuffles. It clips the sub-tile after the last ray of each scan in
+//     its list, and once at load when S >= 1 and its list is empty or
+//     starts after scan 0: the clips of scans that add nothing to the
+//     sub-tile change nothing after that one (a clipped value stays put),
+//     but an init grid beyond the clip needs it, and clip(v + a) !=
+//     clip(clip(v) + a) there.
 //
 // Design of raywalk_scan: a warp owns a 32 x 32 sub-tile. A block of
 // four warps holds a 64 x 64 square, a quadrant a warp, and shares
@@ -76,10 +108,7 @@
 // on one scheduler: the ray's tests and walk layout (six integer
 // divisions, spread over the lanes), its broadcast, and a shared-memory
 // read-add-write one __syncwarp apart. The robot's cell alone takes one
-// in-order add from every ray. It replaces a design in which a block of
-// 128 threads owned a 64 x 64 tile, compacted the rays through a
-// shared-memory queue and walked them one block barrier apart, with at
-// most half its threads holding a slot (0.174 ms a clipped scan, PERF.md).
+// in-order add from every ray.
 //
 // Integer division: the closed forms divide negative numerators, and JAX's
 // '//' floors while C++ '/' truncates toward zero, so floordiv() is used.
@@ -89,10 +118,10 @@
 
 namespace {
 
-constexpr int RW_TILE = 64;
-constexpr int RW_THREADS = 128;
-constexpr int RW_WARPS = RW_THREADS / 32;
 constexpr int RW_BIG = 1 << 28;
+constexpr unsigned RS_ALL = 0xffffffffu;
+constexpr unsigned RB_NONE = 0xffffffffu;  // a lane with no owner left
+constexpr int RB_SUB = 16;  // the side of raywalk_build's owners, in cells
 
 __device__ __forceinline__ int floordiv(int a, int b) {  // b > 0
   const int q = a / b;
@@ -177,152 +206,132 @@ __device__ __forceinline__ void clip_ray(int sx, int sy, int ex, int ey,
   kend = k_out;
 }
 
-// The rays of one batch (RW_THREADS consecutive rays of a scan) that touch
-// the block's tile, compacted in ray order: each one's slot sub-interval
-// [lo, hi] inside the tile, its last in-map slot and its Bresenham walk.
-struct RayQueue {
-  int lo[RW_THREADS], hi[RW_THREADS], end[RW_THREADS];
-  int sM[RW_THREADS], sm[RW_THREADS], sg[RW_THREADS];
-  int dM[RW_THREADS], dm[RW_THREADS], c[RW_THREADS];
-  int warp_count[RW_WARPS];
-};
-
-// Phase A: thread t takes ray base + t of the scan (ends (R, 4), mask (R,)),
-// computes its slot interval clipped to the map (the closed form of
-// ray_descriptors, tail-capped at K) and then to the tile at (x0, y0); the
-// rays with a non-empty sub-interval are compacted in order into q. Returns
-// their count, the same in every thread. Ends with a barrier.
-__device__ __forceinline__ int compact_rays(const int32_t* __restrict__ ends,
-                                            const uint8_t* __restrict__ mask,
-                                            int base, int R, int W, int H,
-                                            int K, int x0, int y0,
-                                            RayQueue& q) {
-  const int x1 = x0 + RW_TILE - 1, y1 = y0 + RW_TILE - 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r = base + tid;
-  const bool valid = r < R && mask[r];
-  int sx = 0, sy = 0, ex = 0, ey = 0;
-  if (valid) {
-    const int32_t* e = ends + (size_t)r * 4;
-    sx = e[0];
-    sy = e[1];
-    ex = e[2];
-    ey = e[3];
-  }
-  Ray ray;
-  int klo, khi, kend;
-  clip_ray(sx, sy, ex, ey, valid, W, H, K, x0, y0, x1, y1, ray, klo, khi,
-           kend);
-  const bool hit = klo <= khi;
-  const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-  if (lane == 0) q.warp_count[warp] = __popc(ballot);
-  __syncthreads();
-  int offset = __popc(ballot & ((1u << lane) - 1u)), total = 0;
-  for (int w = 0; w < RW_WARPS; ++w) {
-    if (w < warp) offset += q.warp_count[w];
-    total += q.warp_count[w];
-  }
-  if (hit) {
-    q.lo[offset] = klo;
-    q.hi[offset] = khi;
-    q.end[offset] = kend;
-    q.sM[offset] = ray.sM;
-    q.sm[offset] = ray.sm;
-    // signs and steepness packed: bit 0 steep, bit 1 sgM < 0, bit 2 sgm < 0
-    q.sg[offset] = ray.steep | (ray.sgM < 0) << 1 | (ray.sgm < 0) << 2;
-    q.dM[offset] = max(ray.dM, 1);
-    q.dm[offset] = ray.dm;
-    q.c[offset] = ray.c;
-  }
-  __syncthreads();
-  return total;
+// The cell (x, y) at slot k of the ray (k >= 0).
+__device__ __forceinline__ void cell_at(const Ray& r, int k, int& x, int& y) {
+  const int major = r.sM + r.sgM * k;
+  const int minor = r.sm + r.sgm * ((k * r.dm + r.c) / max(r.dM, 1));
+  x = r.steep ? minor : major;
+  y = r.steep ? major : minor;
 }
 
-// Phase B: walk the `total` compacted rays in order, one slot per thread,
-// adding -log4 to each cell and +log4 to the cell at the ray's last in-map
-// slot. Ends with a barrier, so q may be refilled next.
-__device__ __forceinline__ void walk_rays(int total, const RayQueue& q,
-                                          float (*tile)[RW_TILE], int x0,
-                                          int y0, float log4) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < total; ++j) {
-    const int k = q.lo[j] + tid;
-    if (k <= q.hi[j]) {
-      const int sg = q.sg[j];
-      const int sgM = (sg & 2) ? -1 : 1, sgm = (sg & 4) ? -1 : 1;
-      const int major = q.sM[j] + sgM * k;
-      const int minor = q.sm[j] + sgm * ((k * q.dm[j] + q.c[j]) / q.dM[j]);
-      const int x = (sg & 1) ? minor : major;
-      const int y = (sg & 1) ? major : minor;
-      float& cell = tile[x - x0][y - y0];
-      cell = __fadd_rn(cell, k == q.end[j] ? log4 : -log4);
+// The owner rows [oy, oy_end] that the ray's in-map slots [k_in, k_out]
+// cross in owner column ox (columns of RB_SUB cells). The ray's cells in
+// the column are consecutive slots whose y moves by at most one a slot, so
+// the ray crosses every owner row between its first and last cell there.
+__device__ __forceinline__ void owner_rows(const Ray& r, int ox, int k_in,
+                                           int k_out, int H, int& oy,
+                                           int& oy_end) {
+  const int x0 = ox * RB_SUB, x1 = x0 + RB_SUB - 1;
+  int t_lo, t_hi;
+  if (r.steep) {
+    interval(r, 0, H - 1, x0, x1, t_lo, t_hi);
+  } else {
+    interval(r, x0, x1, 0, H - 1, t_lo, t_hi);
+  }
+  int xa, ya, xb, yb;
+  cell_at(r, max(k_in, t_lo), xa, ya);
+  cell_at(r, min(k_out, t_hi), xb, yb);
+  oy = min(ya, yb) / RB_SUB;  // cells in the map: y >= 0
+  oy_end = max(ya, yb) / RB_SUB;
+}
+
+// Both binning passes of raywalk_build. Warp w takes the rays [w chunk,
+// (w + 1) chunk) of the flat (S R) order. table is (n_owners, n_chunks)
+// int32, owner-major. Count pass (entries == nullptr): table starts at zero
+// and ends as each (owner, chunk)'s crossing count. Fill pass: table
+// starts as the exclusive scan of the counts and each crossing's ray index
+// goes to entries at its (owner, chunk) cursor, in ray order.
+__global__ void __launch_bounds__(128)
+raywalk_bin_kernel(const int32_t* __restrict__ ends,
+                   const uint8_t* __restrict__ mask, int n_rays, int W,
+                   int H, int K, int chunk, int n_chunks,
+                   int* __restrict__ table, int* __restrict__ entries) {
+  const int lane = threadIdx.x & 31;
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (w >= n_chunks) return;  // warp-uniform
+  const int OH = (H + RB_SUB - 1) / RB_SUB;
+  const unsigned below = (1u << lane) - 1u;
+  const int first = w * chunk, last = min(n_rays, first + chunk);
+  for (int base = first; base < last; base += 32) {
+    const int g = base + lane;
+    const bool valid = g < last && mask[g];
+    int4 e = make_int4(0, 0, 0, 0);
+    if (valid) e = *reinterpret_cast<const int4*>(ends + (size_t)g * 4);
+    Ray ray;
+    int k_in, k_out, kend;
+    clip_ray(e.x, e.y, e.z, e.w, valid, W, H, K, 0, 0, W - 1, H - 1, ray,
+             k_in, k_out, kend);
+    bool live = k_in <= k_out;
+    int ox = 0, ox_end = -1, oy = 0, oy_end = -1;
+    if (live) {
+      int xa, ya, xb, yb;
+      cell_at(ray, k_in, xa, ya);
+      cell_at(ray, k_out, xb, yb);
+      ox = min(xa, xb) / RB_SUB;
+      ox_end = max(xa, xb) / RB_SUB;
+      owner_rows(ray, ox, k_in, k_out, H, oy, oy_end);
     }
-    __syncthreads();
-  }
-  if (total == 0) __syncthreads();  // q and warp_count reuse barrier
-}
-
-// Copy the block's tile in from the grid (zeros past the map's edge).
-__device__ __forceinline__ void load_tile(const float* __restrict__ grid,
-                                          int W, int H, int x0, int y0,
-                                          float (*tile)[RW_TILE]) {
-  for (int e = threadIdx.x; e < RW_TILE * RW_TILE; e += RW_THREADS) {
-    const int gx = x0 + e / RW_TILE, gy = y0 + e % RW_TILE;
-    tile[e / RW_TILE][e % RW_TILE] =
-        (gx < W && gy < H) ? grid[(size_t)gx * H + gy] : 0.f;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(RW_THREADS)
-raywalk_build_kernel(const int32_t* __restrict__ ends,
-                     const uint8_t* __restrict__ mask, int S, int R, int W,
-                     int H, int K, float log4, float clip,
-                     float* __restrict__ grid) {
-  __shared__ float tile[RW_TILE][RW_TILE];
-  __shared__ RayQueue q;
-  const int x0 = blockIdx.x * RW_TILE, y0 = blockIdx.y * RW_TILE;
-  load_tile(grid, W, H, x0, y0, tile);
-
-  for (int s = 0; s < S; ++s) {
-    const int32_t* ends_s = ends + (size_t)s * R * 4;
-    const uint8_t* mask_s = mask + (size_t)s * R;
-    for (int base = 0; base < R; base += RW_THREADS) {
-      const int total = compact_rays(ends_s, mask_s, base, R, W, H, K, x0,
-                                     y0, q);
-      walk_rays(total, q, tile, x0, y0, log4);
+    // merge the lanes' increasing owner sequences, smallest owner first
+    while (true) {
+      const unsigned key = live ? (unsigned)(ox * OH + oy) : RB_NONE;
+      const unsigned m = __reduce_min_sync(RS_ALL, key);
+      if (m == RB_NONE) break;  // warp-uniform
+      const bool on = key == m;
+      const unsigned group = __ballot_sync(RS_ALL, on);
+      const int leader = __ffs(group) - 1;
+      const size_t at = (size_t)m * n_chunks + w;
+      if (entries == nullptr) {
+        // only this warp writes this (owner, chunk) count: the atomic is a
+        // store that does not wait for the old value
+        if (lane == leader) atomicAdd(table + at, __popc(group));
+      } else {
+        int cursor = 0;
+        if (lane == leader) {
+          cursor = table[at];
+          table[at] = cursor + __popc(group);
+        }
+        cursor = __shfl_sync(RS_ALL, cursor, leader);
+        if (on) entries[cursor + __popc(group & below)] = g;
+      }
+      if (on && ++oy > oy_end) {
+        if (++ox > ox_end) {
+          live = false;
+        } else {
+          owner_rows(ray, ox, k_in, k_out, H, oy, oy_end);
+        }
+      }
     }
-    // per-scan clip (reference modules/ogm.py:188)
-    for (int e = threadIdx.x; e < RW_TILE * RW_TILE; e += RW_THREADS) {
-      float& v = tile[e / RW_TILE][e % RW_TILE];
-      v = fminf(fmaxf(v, -clip), clip);
-    }
-    __syncthreads();
-  }
-
-  for (int e = threadIdx.x; e < RW_TILE * RW_TILE; e += RW_THREADS) {
-    const int gx = x0 + e / RW_TILE, gy = y0 + e % RW_TILE;
-    if (gx < W && gy < H) grid[(size_t)gx * H + gy] = tile[e / RW_TILE][e % RW_TILE];
   }
 }
 
-constexpr int RS_SUB = 32;               // a warp's sub-tile side
-constexpr int RS_PITCH = RS_SUB + 1;     // padded row of the sub-tile
-constexpr int RS_WARPS = 4;              // 2 x 2 sub-tiles a block
-constexpr int RS_THREADS = 32 * RS_WARPS;
-constexpr unsigned RS_ALL = 0xffffffffu;
-
-// Copy the warp's sub-tile in from the grid (zeros past the map's edge):
-// lane l takes column y0 + l of every row.
+// Copy the warp's SUB x SUB sub-tile in from the grid (zeros past the map's
+// edge): lane l < SUB takes column y0 + l of every row.
+template <int SUB>
 __device__ __forceinline__ void load_sub(const float* __restrict__ grid,
                                          int W, int H, int x0, int y0,
                                          float* tile) {
   const int lane = threadIdx.x & 31, gy = y0 + lane;
+  if (lane < SUB) {
 #pragma unroll 8
-  for (int i = 0; i < RS_SUB; ++i) {
-    const int gx = x0 + i;
-    tile[i * RS_PITCH + lane] =
-        (gx < W && gy < H) ? grid[(size_t)gx * H + gy] : 0.f;
+    for (int i = 0; i < SUB; ++i) {
+      const int gx = x0 + i;
+      tile[i * (SUB + 1) + lane] =
+          (gx < W && gy < H) ? grid[(size_t)gx * H + gy] : 0.f;
+    }
+  }
+  __syncwarp();
+}
+
+// Clip the warp's sub-tile to +/-clip in shared memory.
+template <int SUB>
+__device__ __forceinline__ void clip_sub(float* tile, float clip) {
+  const int lane = threadIdx.x & 31;
+  if (lane < SUB) {
+#pragma unroll 8
+    for (int i = 0; i < SUB; ++i) {
+      float& v = tile[i * (SUB + 1) + lane];
+      v = fminf(fmaxf(v, -clip), clip);
+    }
   }
   __syncwarp();
 }
@@ -339,24 +348,26 @@ struct SubRay {
   int step;        // step_major (low 16 bits) | step_minor << 16
 };
 
+template <int SUB>
 __device__ __forceinline__ SubRay sub_ray(const Ray& r, int lo, int hi,
                                           int end, int x0, int y0) {
+  constexpr int PITCH = SUB + 1;  // padded row of the sub-tile
   const int dM = max(r.dM, 1);
   const int num = lo * r.dm + r.c;
   const int q = num / dM;
   const int rem = num - q * dM;  // (lo dm + c) mod dM
-  // the 31 step bits as four independent chains of the Bresenham error,
+  // the SUB - 1 step bits as independent chains of the Bresenham error,
   // each started 8 slots on
   const int e8 = (8 * r.dm) % dM;
   int start = rem;
   unsigned steps = 0;
 #pragma unroll
-  for (int part = 0; part < 4; ++part) {
+  for (int part = 0; part < SUB / 8; ++part) {
     int err = start;
     start += e8;
     if (start >= dM) start -= dM;
 #pragma unroll
-    for (int l = part * 8; l < min(part * 8 + 8, RS_SUB - 1); ++l) {
+    for (int l = part * 8; l < min(part * 8 + 8, SUB - 1); ++l) {
       err += r.dm;
       if (err >= dM) {
         err -= dM;
@@ -367,30 +378,201 @@ __device__ __forceinline__ SubRay sub_ray(const Ray& r, int lo, int hi,
   const int major = r.sM + r.sgM * lo, minor = r.sm + r.sgm * q;
   const int x = r.steep ? minor : major, y = r.steep ? major : minor;
   SubRay w;
-  // the last in-map slot's offset is capped at 32 (past the sub-tile)
-  w.key = ((x - x0) * RS_PITCH + (y - y0)) | min(end - lo, RS_SUB) << 16 |
+  // the last in-map slot's offset is capped at SUB (past the sub-tile)
+  w.key = ((x - x0) * PITCH + (y - y0)) | min(end - lo, SUB) << 16 |
           (hi - lo + 1) << 24;
   w.steps = steps;
-  const int step_major = (r.steep ? 1 : RS_PITCH) * r.sgM;
-  const int step_minor = (r.steep ? RS_PITCH : 1) * r.sgm;
+  const int step_major = (r.steep ? 1 : PITCH) * r.sgM;
+  const int step_minor = (r.steep ? PITCH : 1) * r.sgm;
   w.step = (int)((unsigned)step_major & 0xffffu |
                  (unsigned)step_minor << 16);
   return w;
 }
 
-// Lane l's cell of the ray whose payload lane j holds: its sub-tile
-// offset (below 32 x 33), with bit 11 set where the add is +log4 (the
-// ray's last in-map slot); -1 where the ray has no slot lo + l.
-__device__ __forceinline__ int cell_code(const SubRay& ray_j, int j) {
-  const int lane = threadIdx.x & 31;
+// The cell at slot lo + `slot` of the ray whose payload lane j holds: its
+// sub-tile offset (below 32 x 33), with bit 11 set where the add is +log4
+// (the ray's last in-map slot); -1 where the ray has no such slot.
+__device__ __forceinline__ int cell_code_at(const SubRay& ray_j, int j,
+                                            int slot) {
   const int key = __shfl_sync(RS_ALL, ray_j.key, j);
   const unsigned steps = __shfl_sync(RS_ALL, ray_j.steps, j);
   const int step = __shfl_sync(RS_ALL, ray_j.step, j);
-  const int m = __popc(steps & ((1u << lane) - 1u));
-  const int at = (key & 0xffff) + (short)step * lane + (step >> 16) * m;
-  const int code = at | (lane == ((key >> 16) & 63)) << 11;
-  return lane < (key >> 24) ? code : -1;
+  const int m = __popc(steps & ((1u << slot) - 1u));
+  const int at = (key & 0xffff) + (short)step * slot + (step >> 16) * m;
+  const int code = at | (slot == ((key >> 16) & 63)) << 11;
+  return slot < (key >> 24) ? code : -1;
 }
+
+// Walk rays 0 .. n - 1 in order, one __syncwarp a ray: lane l adds to its
+// cell of each, code_of(j) (cell_code_at's code of ray j, or -1). Ray j +
+// 1's code is taken while ray j's read-add-write is in flight. Each cell of
+// the sub-tile gets its adds in ray order: the walk's exactness rests here.
+template <typename CodeOf>
+__device__ __forceinline__ void walk_in_order(CodeOf code_of, int n,
+                                              float* tile, float log4) {
+  int c = code_of(0);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (j == n) break;  // warp-uniform
+    const float old = c >= 0 ? tile[c & 0x7ff] : 0.f;
+    const int c_next = code_of(j + 1);
+    const float sum = __fadd_rn(old, (c & 0x800) ? log4 : -log4);
+    if (c >= 0) tile[c & 0x7ff] = sum;
+    __syncwarp();
+    c = c_next;
+  }
+}
+
+// A warp's cells of a batch of rays: row j holds ray j's cell of slot lo +
+// l in column l (cell_code_at's codes; -1 past the ray's slots, and in
+// columns RB_SUB .. 31). Row 32 is read past a batch's last ray and unused.
+constexpr int RB_ROWS = 33;
+
+// The cells of the n rays whose payloads lanes 0 .. n - 1 hold, into rows
+// 0 .. n - 1 of codes, 32 / RB_SUB rays a pass.
+__device__ __forceinline__ void fill_codes(const SubRay& mine, int n,
+                                           int* codes) {
+  const int lane = threadIdx.x & 31, slot = lane % RB_SUB;
+#pragma unroll 4
+  for (int j0 = 0; j0 < n; j0 += 32 / RB_SUB) {  // warp-uniform
+    const int j = j0 + lane / RB_SUB;
+    const int code = cell_code_at(mine, j & 31, slot);
+    if (j < 32) codes[j * 32 + slot] = j < n ? code : -1;
+  }
+}
+
+// Named barriers between two warps of a block (id 0 is __syncthreads').
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
+}
+
+constexpr int RB_FEEDERS = 3;  // warps that prepare batches for the walker
+constexpr int RB_THREADS = 32 * (1 + RB_FEEDERS);
+
+// One batch of an owner's list, prepared by a feeder warp: the cells of
+// its rays, their count, and bit j set where ray j is the last of its scan
+// in the list (the sub-tile is clipped after it).
+struct Batch {
+  int codes[RB_ROWS * 32];
+  int count;
+  unsigned clip_after;
+};
+
+// Feeder f of the list walk: prepares batches f, f + RB_FEEDERS, ... of
+// the owner's list (RB_SUB x RB_SUB cells at (x0, y0); n entries) into
+// ring slot f, each after the walker has released the slot's previous
+// batch. Lane l takes entry base + l: its ray ends, its slots in the
+// sub-tile (clip_ray; every entry crosses the sub-tile), its walk layout
+// (sub_ray) and its scan; the entries and ray ends of the slot's next
+// batch are fetched while this one is prepared.
+__device__ __forceinline__ void feed(const int32_t* __restrict__ ends,
+                                     const int* __restrict__ list, int n,
+                                     int f, int R, int W, int H, int K,
+                                     int x0, int y0, Batch& slot) {
+  const int lane = threadIdx.x & 31;
+  const int x1 = x0 + RB_SUB - 1, y1 = y0 + RB_SUB - 1;
+  const int full = 1 + 2 * f, empty = 2 + 2 * f;  // named barrier ids
+  constexpr int STRIDE = 32 * RB_FEEDERS;  // entries between a slot's batches
+  for (int j = 0; j < RB_ROWS; ++j) slot.codes[j * 32 + lane] = -1;
+  auto entry = [&](int at) { return at < n ? list[at] : -1; };
+  auto ray = [&](int g) {
+    return g >= 0 ? *reinterpret_cast<const int4*>(ends + (size_t)g * 4)
+                  : make_int4(0, 0, 0, 0);
+  };
+  int g = entry(32 * f + lane), g_next = entry(32 * f + STRIDE + lane);
+  int4 e = ray(g);
+  for (int base = 32 * f; base < n; base += STRIDE) {
+    const int g_after = entry(base + 2 * STRIDE + lane);
+    const int4 e_next = ray(g_next);
+    const int g_first_after = entry(base + 32);  // the next batch's first
+    Ray r;
+    int klo, khi, kend;
+    clip_ray(e.x, e.y, e.z, e.w, g >= 0, W, H, K, x0, y0, x1, y1, r, klo,
+             khi, kend);
+    const SubRay mine = klo <= khi
+                            ? sub_ray<RB_SUB>(r, klo, khi, kend, x0, y0)
+                            : SubRay{0, 0u, 0};
+    const int scan = g >= 0 ? g / R : -1;
+    int scan_after = __shfl_down_sync(RS_ALL, scan, 1);
+    if (lane == 31) scan_after = g_first_after >= 0 ? g_first_after / R : -1;
+    const unsigned clip_after =
+        __ballot_sync(RS_ALL, g >= 0 && scan != scan_after);
+    const int count = min(32, n - base);
+    if (base >= STRIDE) pair_sync(empty);  // the walker is done with it
+    fill_codes(mine, count, slot.codes);
+    if (lane == 0) {
+      slot.count = count;
+      slot.clip_after = clip_after;
+    }
+    __syncwarp();
+    pair_arrive(full);
+    g = g_next;
+    e = e_next;
+    g_next = g_after;
+  }
+}
+
+// The list walk of raywalk_build. Block b owns sub-tile b (owner id ox OH +
+// oy, RB_SUB x RB_SUB cells at x0 = ox RB_SUB, y0 = oy RB_SUB) and its list
+// entries[bounds[b] .. bounds[b + 1]) (global ray indices s R + r, in
+// order). Warps 1 .. RB_FEEDERS prepare the list's batches in turn (feed);
+// warp 0 loads the sub-tile and walks the batches in order from the ring
+// of prepared cells, clipping after the last ray of each scan (see the
+// design note above), and stores the sub-tile.
+__global__ void __launch_bounds__(RB_THREADS)
+raywalk_walk_kernel(const int32_t* __restrict__ ends,
+                    const int* __restrict__ bounds,
+                    const int* __restrict__ entries, int S, int R, int W,
+                    int H, int K, float log4, float clip,
+                    float* __restrict__ grid) {
+  __shared__ float tile[RB_SUB * (RB_SUB + 1)];
+  __shared__ Batch ring[RB_FEEDERS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int OH = (H + RB_SUB - 1) / RB_SUB;
+  const int owner = blockIdx.x;
+  const int x0 = owner / OH * RB_SUB, y0 = owner % OH * RB_SUB;
+  const int begin = bounds[owner], n = bounds[owner + 1] - begin;
+  const int* list = entries + begin;
+  if (warp > 0) {  // warp-uniform
+    feed(ends, list, n, warp - 1, R, W, H, K, x0, y0, ring[warp - 1]);
+    return;
+  }
+  load_sub<RB_SUB>(grid, W, H, x0, y0, tile);
+  if (S >= 1 && (n == 0 || list[0] >= R)) clip_sub<RB_SUB>(tile, clip);
+  const int n_batches = (n + 31) / 32;
+  for (int b = 0; b < n_batches; ++b) {
+    const int f = b % RB_FEEDERS;
+    pair_sync(1 + 2 * f);  // batch b is ready
+    const Batch& batch = ring[f];
+    const int count = batch.count;
+    const unsigned clip_after = batch.clip_after;
+    // walk the batch in runs that end where a scan ends
+    for (int j0 = 0; j0 < count;) {  // warp-uniform
+      const unsigned ends_here = clip_after >> j0;
+      const int len = ends_here ? __ffs(ends_here) : count - j0;
+      const int* rows = batch.codes + j0 * 32;
+      walk_in_order([&](int j) { return rows[j * 32 + lane]; }, len, tile,
+                    log4);
+      if (ends_here) clip_sub<RB_SUB>(tile, clip);
+      j0 += len;
+    }
+    if (b + RB_FEEDERS < n_batches) pair_arrive(2 + 2 * f);  // slot free
+  }
+  // lane l < RB_SUB stores column y0 + l (the walk ended with __syncwarp)
+  const int gy = y0 + lane;
+  if (lane >= RB_SUB || gy >= H) return;
+  for (int i = 0; i < RB_SUB && x0 + i < W; ++i) {
+    grid[(size_t)(x0 + i) * H + gy] = tile[i * (RB_SUB + 1) + lane];
+  }
+}
+
+constexpr int RS_SUB = 32;               // a warp's sub-tile side
+constexpr int RS_PITCH = RS_SUB + 1;     // padded row of the sub-tile
+constexpr int RS_WARPS = 4;              // 2 x 2 sub-tiles a block
+constexpr int RS_THREADS = 32 * RS_WARPS;
 
 // The position of the (lane + 1)-th set bit of `bits`, for a lane below
 // its count of set bits: the last position with at most `lane` set bits
@@ -425,7 +607,7 @@ raywalk_scan_kernel(const int32_t* __restrict__ ends,
   float* tile = tiles[warp];
   bool loaded = false;
   if (has_clip) {
-    load_sub(grid, W, H, x0, y0, tile);
+    load_sub<RS_SUB>(grid, W, H, x0, y0, tile);
     loaded = true;
   }
 
@@ -452,32 +634,22 @@ raywalk_scan_kernel(const int32_t* __restrict__ ends,
     unsigned hits = __ballot_sync(RS_ALL, klo <= khi);
     if (hits != 0) {
       if (!loaded) {
-        load_sub(grid, W, H, x0, y0, tile);
+        load_sub<RS_SUB>(grid, W, H, x0, y0, tile);
         loaded = true;
       }
-      const SubRay mine = klo <= khi ? sub_ray(ray, klo, khi, kend, x0, y0)
-                                     : SubRay{0, 0u, 0};
+      const SubRay mine = klo <= khi
+                              ? sub_ray<RS_SUB>(ray, klo, khi, kend, x0, y0)
+                              : SubRay{0, 0u, 0};
       // lane j takes the payload of the batch's j-th ray that hits the
       // sub-tile (rays in order), so ray j's broadcast comes from lane j
-      const int n = __popc(hits);
       const int from = nth_set_bit(hits);
       SubRay ranked;
       ranked.key = __shfl_sync(RS_ALL, mine.key, from);
       ranked.steps = __shfl_sync(RS_ALL, mine.steps, from);
       ranked.step = __shfl_sync(RS_ALL, mine.step, from);
-      // the adds in ray order; ray j + 1's cell is computed while ray j's
-      // read-add-write is in flight
-      int c = cell_code(ranked, 0);
-#pragma unroll
-      for (int j = 0; j < RS_SUB; ++j) {
-        if (j == n) break;  // warp-uniform
-        const float old = c >= 0 ? tile[c & 0x7ff] : 0.f;
-        const int c_next = cell_code(ranked, (j + 1) & 31);
-        const float sum = __fadd_rn(old, (c & 0x800) ? log4 : -log4);
-        if (c >= 0) tile[c & 0x7ff] = sum;
-        __syncwarp();
-        c = c_next;
-      }
+      walk_in_order(
+          [&](int j) { return cell_code_at(ranked, j & 31, lane); },
+          __popc(hits), tile, log4);
     }
     valid = valid_next;
     e = e_next;
@@ -495,19 +667,39 @@ raywalk_scan_kernel(const int32_t* __restrict__ ends,
 
 }  // namespace
 
-// ends (S, R, 4) int32 rows (sx, sy, ex, ey) of ray start and end cells;
-// mask (S, R) bool as bytes; grid (W, H) float32, read as the initial map
-// and overwritten with the result. Launches on `stream` and returns
-// cudaGetLastError() of the launch.
-extern "C" int slam_raywalk_build(const void* ends, const void* mask, int S,
-                                  int R, int W, int H, int K, float log4,
-                                  float clip, void* grid, void* stream) {
+// One binning pass of raywalk_build: ends (n_rays, 4) int32 rows (sx, sy,
+// ex, ey), mask (n_rays,) bool as bytes, in (scan, ray) order; table
+// (n_owners, n_chunks) int32 over the RB_SUB x RB_SUB owners; entries null
+// for the count pass, else the (total,) int32 lists. Launches on `stream`
+// and returns cudaGetLastError() of the launch.
+extern "C" int slam_raywalk_bin(const void* ends, const void* mask,
+                                int n_rays, int W, int H, int K, int chunk,
+                                int n_chunks, void* table, void* entries,
+                                void* stream) {
+  if (W <= 0 || H <= 0 || n_chunks <= 0) return 0;
+  if (n_rays < 0 || K <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (n_chunks + 3) / 4;
+  raywalk_bin_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ends, (const uint8_t*)mask, n_rays, W, H, K, chunk,
+      n_chunks, (int*)table, (int*)entries);
+  return (int)cudaGetLastError();
+}
+
+// The list walk of raywalk_build: ends (S, R, 4) int32; bounds (n_owners +
+// 1,) int32 and entries the owners' lists from the binning; grid (W, H)
+// float32, read as the initial map and overwritten with the result.
+// Launches on `stream` and returns cudaGetLastError() of the launch.
+extern "C" int slam_raywalk_walk(const void* ends, const void* bounds,
+                                 const void* entries, int S, int R, int W,
+                                 int H, int K, float log4, float clip,
+                                 void* grid, void* stream) {
   if (W <= 0 || H <= 0) return 0;
   if (S < 0 || R < 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  dim3 blocks((W + RW_TILE - 1) / RW_TILE, (H + RW_TILE - 1) / RW_TILE);
-  raywalk_build_kernel<<<blocks, RW_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)ends, (const uint8_t*)mask, S, R, W, H, K, log4, clip,
-      (float*)grid);
+  const int owners =
+      ((W + RB_SUB - 1) / RB_SUB) * ((H + RB_SUB - 1) / RB_SUB);
+  raywalk_walk_kernel<<<owners, RB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ends, (const int*)bounds, (const int*)entries, S, R, W,
+      H, K, log4, clip, (float*)grid);
   return (int)cudaGetLastError();
 }
 

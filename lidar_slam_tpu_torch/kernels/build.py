@@ -103,8 +103,10 @@ def library() -> ctypes.CDLL:
     i64 = ctypes.c_longlong
     lib.slam_nn_argmin.argtypes = [p, p, p, i, i, i, i, p, p, p]
     lib.slam_nn_argmin.restype = i
-    lib.slam_raywalk_build.argtypes = [p, p, i, i, i, i, i, f, f, p, p]
-    lib.slam_raywalk_build.restype = i
+    lib.slam_raywalk_bin.argtypes = [p, p, i, i, i, i, i, i, p, p, p]
+    lib.slam_raywalk_bin.restype = i
+    lib.slam_raywalk_walk.argtypes = [p, p, p, i, i, i, i, i, f, f, p, p]
+    lib.slam_raywalk_walk.restype = i
     lib.slam_raywalk_scan.argtypes = [p, p, i, i, i, i, f, f, i, p, p]
     lib.slam_raywalk_scan.restype = i
     probes = {  # csrc/probes.cu, P1-P9

@@ -4,10 +4,10 @@ and the unclipped per-scan delta.
 Counterpart of lidar_slam_tpu/ops/raywalk.py::ray_descriptors. A straight
 line enters and leaves the (convex) map rectangle at most once, so a ray's
 in-bounds Bresenham cells are one contiguous slot interval [k_in, k_out];
-both ends are closed-form. The Hopper kernel (csrc/raywalk.cu) evaluates
-the same closed form per ray, with the map bounds and again with each
-64 x 64 tile's bounds; this module keeps it in PyTorch so tests can hold
-it equal to the JAX package's integers.
+both ends are closed-form. The Hopper kernels (csrc/raywalk.cu) evaluate
+the same closed form per ray, with the map bounds and again with the
+bounds of each map region that walks the ray; this module keeps it in
+PyTorch so tests can hold it equal to the JAX package's integers.
 """
 
 from __future__ import annotations

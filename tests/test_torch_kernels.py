@@ -15,7 +15,10 @@ import torch
 from lidar_slam_tpu_torch.config import MapConfig
 from lidar_slam_tpu_torch.kernels import probes
 from lidar_slam_tpu_torch.kernels.nn import nn_argmin, nn_argmin_rounded
-from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build, raywalk_scan
+from lidar_slam_tpu_torch.kernels import raywalk as rw
+from lidar_slam_tpu_torch.kernels.raywalk import (OWNER_SIDE, raywalk_bins,
+                                                  raywalk_bins_plain,
+                                                  raywalk_build, raywalk_scan)
 from lidar_slam_tpu_torch.models import occupancy
 from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
 from lidar_slam_tpu_torch.ops.raywalk import scan_delta_raywalk
@@ -369,6 +372,138 @@ def test_raywalk_scan_stress(dev, case, clip):
     got = _scan_check(dev, ends, mask, cfg, K, init, clip)
     before = init if clip is None else init.clamp(-clip, clip)
     assert int((got != before).sum()) > 50
+
+
+def _axis_rays(x0, y0, n):
+    """Rays of n cells along +x, -x, +y, -y and the four diagonals from
+    (x0, y0), and their reverses."""
+    rows = []
+    for dx, dy in ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, -1),
+                   (1, -1), (-1, 1)):
+        ex, ey = x0 + dx * (n - 1), y0 + dy * (n - 1)
+        rows += [(x0, y0, ex, ey), (ex, ey, x0, y0)]
+    return rows
+
+
+def _build_case(case):
+    """(ends (S, R, 4) int32, masks, W, H, K) of one K1 stress case: scans
+    of R rays each; scan 1 fully masked where S > 2."""
+    rng = np.random.default_rng(sum(case.encode()))
+    W, H, K, S, R = 200, 170, 608, 6, 400
+    side = OWNER_SIDE
+    if case == "axes_45":  # rays along both axes and at 45 degrees, from
+        # cells on and beside owner edges
+        rows = []
+        for x0, y0 in ((side - 1, side), (side, side - 1), (2 * side, 40),
+                       (100, 2 * side - 1), (57, 3 * side)):
+            for n in (1, 2, side - 1, side, side + 1, 70):
+                rows += _axis_rays(x0, y0, n)
+        scans = [np.array(rows)] * S
+    elif case == "leaving":  # rays leaving the map; robots off the map
+        scans = [np.concatenate([_fan(rng, sx, sy, R // 2, 300.0),
+                                 _fan(rng, sx2, sy2, R // 2, 300.0)])
+                 for sx, sy, sx2, sy2 in rng.integers(-40, 240, (S, 4))]
+    elif case == "small_k":  # tails truncated at K = 5 slots
+        K = 5
+        scans = [_fan(rng, *rng.integers(0, 170, 2), R, 60.0)
+                 for _ in range(S)]
+    elif case == "one_by_n":  # a 1 x N map
+        W, H = 1, 300
+        scans = [_fan(rng, rng.integers(-2, 3), rng.integers(0, 300), R,
+                      80.0) for _ in range(S)]
+    elif case == "owner_plus_one":  # one owner and a row and column more
+        W = H = side + 1
+        scans = [_fan(rng, *rng.integers(0, side + 1, 2), R, 50.0)
+                 for _ in range(S)]
+    elif case == "one_scan":
+        S = 1
+        scans = [_fan(rng, 100, 90, 1081, 150.0)]
+    else:  # "hot": every ray of every scan from one cell, past 32 a batch
+        W = H = 601
+        scans = [_fan(rng, 300, 300, 1081, 420.0) for _ in range(S)]
+    ends = np.stack(scans).astype(np.int32)
+    masks = rng.random(ends.shape[:2]) > 0.05
+    if S > 2:
+        masks[1] = False
+    return torch.as_tensor(ends), torch.as_tensor(masks), W, H, K
+
+
+BUILD_CASES = ["axes_45", "leaving", "small_k", "one_by_n", "owner_plus_one",
+               "one_scan", "hot"]
+
+
+@pytest.mark.parametrize("init", [True, False])
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_raywalk_build_stress(dev, case, init):
+    """The per-owner list walk at its edges, bit-exact against the scatter
+    path on CPU copies; on a zero grid and on an init grid beyond the clip
+    (owners whose lists start after scan 0 clip it at load, the others
+    add first)."""
+    ends, masks, W, H, K = _build_case(case)
+    cfg = _box(W, H)
+    g0 = (torch.as_tensor(np.random.default_rng(W * H).uniform(
+        -30, 30, (W, H)), dtype=torch.float32) if init else None)
+    want = occupancy.build_logodds_scatter(ends, masks, cfg, K, g0)
+    before = raywalk_build.launches
+    got = raywalk_build(ends.to(dev), masks.to(dev), cfg, K,
+                        None if g0 is None else g0.to(dev))
+    torch.cuda.synchronize()
+    assert raywalk_build.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert int((want != (0 if g0 is None else g0.clamp(-20, 20))).sum()) > 20
+
+
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_raywalk_bins_equal_plain(dev, case):
+    """The binning kernel's lists (count, scan, ordered fill) equal the
+    plain lists, entry for entry."""
+    ends, masks, W, H, K = _build_case(case)
+    cfg = _box(W, H)
+    bounds, entries = raywalk_bins(ends.to(dev), masks.to(dev), cfg, K)
+    torch.cuda.synchronize()
+    want_bounds, want_entries = raywalk_bins_plain(ends, masks, cfg, K)
+    assert torch.equal(bounds.cpu(), want_bounds)
+    assert torch.equal(entries.cpu(), want_entries)
+    assert entries.numel() > 0
+
+
+def test_raywalk_bins_large_chunk(dev, monkeypatch):
+    """Where the count matrix would pass TABLE_CAP, a warp bins more than
+    BIN_CHUNK rays, a count that is not a multiple of 1,024: the lists still
+    equal the plain lists, and the build stays bit-exact."""
+    rng = np.random.default_rng(11)
+    W = H = 130  # 9 x 9 owners
+    cfg = _box(W, H)
+    ends = torch.as_tensor(np.stack([
+        _fan(rng, *rng.integers(0, W, 2), 181, 90.0) for _ in range(60)
+    ]).astype(np.int32))
+    masks = torch.as_tensor(rng.random(ends.shape[:2]) > 0.05)
+    monkeypatch.setattr(rw, "TABLE_CAP", 512)
+    chunk = rw.bin_chunk(60 * 181, 81)
+    assert chunk > rw.BIN_CHUNK and chunk % 1024 and -(-60 * 181 // chunk) > 2
+    bounds, entries = raywalk_bins(ends.to(dev), masks.to(dev), cfg, 608)
+    want_bounds, want_entries = raywalk_bins_plain(ends, masks, cfg, 608)
+    assert torch.equal(bounds.cpu(), want_bounds)
+    assert torch.equal(entries.cpu(), want_entries)
+    got = raywalk_build(ends.to(dev), masks.to(dev), cfg, 608)
+    assert torch.equal(got.cpu(), occupancy.build_logodds_scatter(
+        ends, masks, cfg, 608))
+
+
+def test_raywalk_build_no_scans_or_all_masked(dev):
+    """S = 0 returns the init grid as it is; scans that are all masked, or
+    of no rays, only clip it."""
+    cfg = _box(70, 45)
+    g0 = torch.as_tensor(np.random.default_rng(2).uniform(-30, 30, (70, 45)),
+                         dtype=torch.float32)
+    for S, R in ((0, 16), (3, 16), (2, 0)):
+        ends = torch.zeros((S, R, 4), dtype=torch.int32)
+        masks = torch.zeros((S, R), dtype=torch.bool)
+        got = raywalk_build(ends.to(dev), masks.to(dev), cfg, 64, g0.to(dev))
+        want = g0 if S == 0 else g0.clamp(-20, 20)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got.cpu(), occupancy.build_logodds_scatter(
+            ends, masks, cfg, 64, g0))
 
 
 def test_raywalk_scan_rejects_bad_inputs(dev):
