@@ -28,7 +28,10 @@ first failure and catches nothing):
      raywalk_build's owner side, list entries, hottest owner's crossings
      and binning time;
   6. the same pipeline on a small log on the GPU and on the CPU (plain
-     versions) must agree;
+     versions) must agree; the gtsam CLI on the card (60 synthetic steps)
+     with --save_logodds, then --load_poses on its optimized poses, must
+     write the same grid bit for bit, and that map must agree with
+     run_slam on the CPU on the same dataset, as the small log must;
   7. raywalk_scan kernel against its plain version at the online path's
      shapes (1,081 rays, K = 608, 1201 x 1201): the first 200 scans of the
      seed-21 log replayed at their odometry poses, clipped, on a GPU grid
@@ -46,17 +49,19 @@ first failure and catches nothing):
      saved mid-stream and resumed on the GPU must continue bit for bit;
  10. the probe kernels P1-P9 (csrc/probes.cu) against their plain versions
      on CPU copies, bit-exact, at the JAX probe tools' sizes (P9's six
-     modes at the tool's 16,384-pair word table, one repetition); timed in
-     turns with the library call where one computes the same function
-     (P9 at a reduced 64 pairs x 2 repetitions, as its plain version loops
-     in Python); then, with the launch counters reset, the port's three
+     modes at the tool's 16,384-pair word table, one repetition), P7 also
+     with one cell taking an eighth of its 657,408 adds, P8 also with all
+     82,432 segments on one tile; timed in turns with the library call
+     where one computes the same function (P9 at a reduced 64 pairs x 2
+     repetitions, as its plain version loops in Python); then, with the launch counters reset, the port's three
      probe tools (lidar_slam_tpu_torch/tools: pallas_probe,
      scatter_microbench, vpu_probe) at the JAX tools' sizes and counts;
  11. device time a launch from torch.profiler (self CUDA time over the
      launches) beside the CUDA-event time, for raywalk_scan over 100
      clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
      pairs; raywalk_build's binning and walk kernels over three main-path
-     builds, and the walk's ns a crossing of the hottest owner; and 100
+     builds, and the walk's ns a crossing of the hottest owner; P7's five
+     kernels and P8's one over 20 calls at the tools' sizes; and 100
      online steps of a fresh stream (after 20 unprofiled ones): device
      time and kernel launches a step, and the share of raywalk_scan and
      nn_argmin (last, so the profiler cannot slow the timings before it).
@@ -67,7 +72,7 @@ tools' run in [10] for P1-P9), its error against its plain version, its,
 the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
-K1, K2 and K4 with their profiler device times), and
+K1, K2, K4, P7 and P8 with their profiler device times), and
 {"ok": true, "device": ...}.
 """
 
@@ -164,6 +169,24 @@ def device_ms(fn, reps: int, kernel: str):
     return None
 
 
+def pass_ms(fn, reps: int, names) -> dict:
+    """{name: device ms a call of fn} of the device kernels whose name
+    holds each of `names`, over reps calls (after one unprofiled call);
+    None for a name the trace shows no event of in three profiled runs."""
+    fn()
+    torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for _ in range(3):
+        kern = device_kernels(fn, reps)
+        for name in names:
+            us = sum(v[0] for k, v in kern.items() if name in k)
+            if out[name] is None and us > 0:
+                out[name] = us / reps / 1e3
+        if None not in out.values():
+            break
+    return out
+
+
 def nn_check(s, t, tm, reps: int):
     """nn_argmin on (s, t, tm): against nn_argmin_rounded exactly (fails
     on any index or matched-bit difference), against its plain version
@@ -223,6 +246,29 @@ def synced(data, sensors):
 
 
 P9_TIME_PAIRS, P9_TIME_REPS = 64, 2  # the plain version loops in Python
+HOT_CELL = (601, 300)
+
+
+def hot_cell_updates(u: int):
+    """P7's hot-cell case: u updates on random cells, every eighth on
+    HOT_CELL, values of mixed sign and magnitude (so their order shows)."""
+    from lidar_slam_tpu_torch.kernels import probes
+
+    rng = np.random.default_rng(5)
+    W, H = probes.GRID_SHAPE
+    xs = rng.integers(0, W, u).astype(np.int32)
+    ys = rng.integers(0, H, u).astype(np.int32)
+    xs[::8], ys[::8] = HOT_CELL
+    vs = (rng.choice([-1.0, 1.0], u) * 10.0 ** rng.uniform(-3, 3, u))
+    return xs, ys, vs.astype(np.float32)
+
+
+def one_tile_segments(n: int):
+    """P8's hot case: n segments on the tile at (600, 512) in ten line
+    shapes, so each cell of a line takes about n / 10 adds."""
+    k = np.random.default_rng(6).integers(0, 10, n)
+    return (np.full(n, 600, np.int32), np.full(n, 512, np.int32),
+            (100 * k + 1).astype(np.int32), (700 * k).astype(np.int32))
 
 
 class ProbeCase(NamedTuple):
@@ -241,6 +287,7 @@ class ProbeCase(NamedTuple):
     nbytes: int
     ops: int
     reps: int
+    tag: str = ""  # a second case of fn: its time goes to the row as ms_<tag>
 
 
 def probe_cases(dev) -> list:
@@ -256,10 +303,10 @@ def probe_cases(dev) -> list:
         flat, vals = probes.adds(fn, *g)
         return lambda: scatter_microbench.index_add(flat, vals, fn.shape)
 
-    def case(fn, label, g, c, library, nbytes, ops, reps):
-        return ProbeCase(fn, label, lambda: (fn(*g), fn(*c)),
-                         lambda: fn(*g), lambda: fn.plain(*g), library,
-                         nbytes, ops, reps)
+    def case(fn, label, g, c, library, nbytes, ops, reps, tag=""):
+        return ProbeCase(fn, label, lambda: (fn(*g), fn(*c)), lambda: fn(*g),
+                         lambda: fn.plain(*g), library, nbytes, ops, reps,
+                         tag)
 
     cases = []
     for name, fn in pallas_probe.KERNELS.items():
@@ -278,21 +325,27 @@ def probe_cases(dev) -> list:
         cases.append(case(fn, name, g, c, library or adds_library(fn, g),
                           sum(a.nbytes for a in arrays) + 4 * out_n, ops, 50))
     u = scatter_microbench.UPDATES[0]
-    arrays = scatter_microbench.make_updates(u, 0)
-    g = [torch.as_tensor(a, device=dev) for a in arrays]
     grid_bytes = 4 * int(np.prod(probes.GRID_SHAPE))
-    cases.append(case(probes.tile_rmw, f"tile_rmw u={u}", g,
-                      [torch.as_tensor(a) for a in arrays],
-                      adds_library(probes.tile_rmw, g), 12 * u + grid_bytes,
-                      u, 20))
+    for label, arrays, tag in [
+            (f"tile_rmw u={u}", scatter_microbench.make_updates(u, 0), ""),
+            (f"tile_rmw hot cell u={u}", hot_cell_updates(u), "hot_cell")]:
+        g = [torch.as_tensor(a, device=dev) for a in arrays]
+        cases.append(case(probes.tile_rmw, label, g,
+                          [torch.as_tensor(a) for a in arrays],
+                          adds_library(probes.tile_rmw, g),
+                          12 * u + grid_bytes, u, 20, tag))
     nseg = scatter_microbench.SEGMENTS[0]
-    arrays = scatter_microbench.seg_args(nseg, 0)
-    g = [torch.as_tensor(a, device=dev) for a in arrays]
-    cases.append(case(probes.segment_rmw, f"segment_rmw n={nseg}", g,
-                      [torch.as_tensor(a) for a in arrays],
-                      adds_library(probes.segment_rmw, g),
-                      16 * nseg + grid_bytes,
-                      nseg * probes.TS * probes.LANES, 20))
+    for label, arrays, tag in [
+            (f"segment_rmw n={nseg}", scatter_microbench.seg_args(nseg, 0),
+             ""),
+            (f"segment_rmw one tile n={nseg}", one_tile_segments(nseg),
+             "one_tile")]:
+        g = [torch.as_tensor(a, device=dev) for a in arrays]
+        cases.append(case(probes.segment_rmw, label, g,
+                          [torch.as_tensor(a) for a in arrays],
+                          adds_library(probes.segment_rmw, g),
+                          16 * nseg + grid_bytes,
+                          nseg * probes.TS * probes.LANES, 20, tag))
 
     # P9: checked at the tool's word table (m1 pairs, one repetition: the
     # fullv staging rounds and the 4,096-column ray table wrapping); timed
@@ -355,10 +408,12 @@ def probe_phase(dev) -> list:
               f"(max |diff| to the kernel {lib_err}); bound {b_ms:.6f} ms "
               f"({b_by})", flush=True)
         # one row a kernel: P9's times are its `full` mode's, its error
-        # the largest of the six modes
+        # the largest of the six modes; a tagged case adds ms_<tag>
         row = rows.setdefault(c.fn, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if "ms" not in row or c.label.startswith("vpu_loop full "):
+        if c.tag:
+            row[f"ms_{c.tag}"] = ms
+        elif "ms" not in row or c.label.startswith("vpu_loop full "):
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms)
 
@@ -567,6 +622,40 @@ def main() -> int:
           flush=True)
     if pose_diff > SMALL_POSE_TOL or grid_diff > SMALL_GRID_TOL:
         fail("GPU and CPU pipelines disagree on the small log")
+    # the gtsam CLI on the card: --save_logodds, then --load_poses on the
+    # saved optimized poses must rebuild the same grid
+    from lidar_slam_tpu_torch.__main__ import main as cli_main
+
+    cli_dir = os.path.join(ROOT, "build", "chip_smoke", "cli")
+    first, resumed = (os.path.join(cli_dir, f"{name}.npy")
+                      for name in ("first", "resumed"))
+    flags = ["--synthetic", "60", "--device", "cuda", "--output_dir",
+             cli_dir]
+    rc1 = cli_main(["--mode", "gtsam", *flags, "--save_logodds", first])
+    rc2 = cli_main(["--load_poses",
+                    os.path.join(cli_dir, "poses_optimized_20.npy"), *flags,
+                    "--save_logodds", resumed])
+    g1, g2 = np.load(first), np.load(resumed)
+    same_cli = g1.shape == g2.shape and np.array_equal(g1.view(np.int32),
+                                                       g2.view(np.int32))
+    # and the CLI's map against run_slam's plain versions on the CPU, on
+    # the dataset the CLI made (--synthetic 60, main.py's map flags)
+    r_cli = slam.run_slam(*synced(io.synthetic_dataset(n_steps=60), sensors),
+                          mode="gtsam",
+                          cfg=SlamConfig(map=MapConfig.from_cli(0.05, 60, 60)),
+                          device="cpu")
+    cli_vs_cpu = float((occupancy.finalize_grid(torch.from_numpy(g1)).numpy()
+                        != r_cli.grid_map).mean())
+    print(f"[6] gtsam CLI on the card, 60 steps: --save_logodds, then "
+          f"--load_poses poses_optimized_20.npy: resumed grid bit-equal "
+          f"{same_cli}, {int((g1 != 0).sum())} nonzero cells; grid_map "
+          f"cells differing from run_slam on the CPU {cli_vs_cpu:.5f}",
+          flush=True)
+    if rc1 or rc2 or not same_cli or int((g1 != 0).sum()) < 1000:
+        fail("the CLI's --load_poses grid differs from its --save_logodds "
+             "grid")
+    if g1.shape != r_cli.logodds.shape or cli_vs_cpu > SMALL_GRID_TOL:
+        fail("the CLI's map on the card disagrees with run_slam on the CPU")
 
     # 7. raywalk_scan vs plain at the online path's shapes, and K4 at B = 1
     cfg_on = SlamConfig(map=MapConfig.from_cli(0.05, 60, 60))
@@ -776,6 +865,32 @@ def main() -> int:
           f"binning (count and fill passes) {fmt(k1_ms['bin'])}, walk "
           f"{fmt(k1_ms['walk'])} a build{per_crossing}; CUDA events "
           f"{rw_ms:.3f} ms a build", flush=True)
+
+    # P7 and P8 a pass, at the probe tools' sizes
+    from lidar_slam_tpu_torch.kernels import probes
+    from lidar_slam_tpu_torch.tools import scatter_microbench
+
+    g7 = [torch.as_tensor(a, device=dev) for a in
+          scatter_microbench.make_updates(scatter_microbench.UPDATES[0], 0)]
+    g8 = [torch.as_tensor(a, device=dev) for a in
+          scatter_microbench.seg_args(scatter_microbench.SEGMENTS[0], 0)]
+    passes = {
+        "tile_rmw": pass_ms(lambda: probes.tile_rmw(*g7), 20, (
+            "tile_rmw_count", "tile_rmw_scan", "tile_rmw_fill",
+            "tile_rmw_sort", "tile_rmw_sum")),
+        "segment_rmw": pass_ms(lambda: probes.segment_rmw(*g8), 20, (
+            "segment_rmw_kernel",))}
+    for row in probe_rows:
+        if row["name"] in passes:
+            ms_by = passes[row["name"]]
+            row["device_ms"] = (None if None in ms_by.values()
+                                else sum(ms_by.values()))
+            row["device_ms_passes"] = ms_by
+            print(f"[11] {row['name']} under torch.profiler, 20 calls at the "
+                  f"tool's size: " + ", ".join(
+                      f"{k} {fmt(v)}" for k, v in ms_by.items())
+                  + f" a call, device {fmt(row['device_ms'])}; CUDA events "
+                  f"{row['ms']:.4f} ms", flush=True)
 
     print(f"[11] device time a launch (torch.profiler) vs CUDA events: "
           f"raywalk_scan, 100 clipped scans, {fmt(dev_scan)} vs "

@@ -2,14 +2,22 @@
 
     python -m lidar_slam_tpu_torch --mode gtsam --synthetic 4956 --device cuda
 
-Takes main.py's flags for the ported slice (--mode --fixed_interval
---dataset --dataset_path --res --width --height --synthetic --output_dir)
-plus --device, and writes main.py's stage artifacts under the same names
-in --output_dir (poses_odom_<d>.npy, relative_poses_odom_<d>.npy,
+Takes every flag of main.py under main.py's names, defaults and choices,
+plus --device. It writes main.py's stage artifacts under the same names in
+--output_dir (poses_odom_<d>.npy, relative_poses_odom_<d>.npy,
 poses_scan_matching_<d>.npy, relative_poses_scan_matching_<d>.npy,
-poses_optimized_<d>.npy) and the log-odds grid as
-logodds_<mode>_<d>.npy. Flags of capabilities that are not ported yet are
-accepted and refused with "not yet ported".
+poses_optimized_<d>.npy), builds the log-odds map only when main.py does
+(--generate_texture_map, --save_logodds or --export_ros_map) and writes it
+only to --save_logodds. --load_poses X.npy rebuilds the map from saved
+poses and skips pose estimation and the stage artifacts.
+
+Flags of capabilities that are not ported yet parse and then exit nonzero
+with "not yet ported": --filter_lidar, --generate_texture_map,
+--synthetic_revisit N > 0, --loop_proposer proximity|descriptor,
+--robust_loss huber|cauchy, --proximity_seed estimate, --proximity_trim
+other than 1.0, --icp_metric point_to_line, --export_ros_map and
+--export_tum. --synthetic_laps, --logodds_map_path and --texture_map_path
+are accepted: as in main.py, only refused flags read them.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", type=str, default="odom",
                    choices=["odom", "scan_matching", "gtsam"],
                    help="The mode to use for pose estimation")
+    p.add_argument("--filter_lidar", action="store_true",
+                   help="Filter the lidar data (not yet ported)")
     p.add_argument("--fixed_interval", type=int, default=10,
                    help="The fixed interval for loop closure")
     p.add_argument("--dataset", type=int, default=20,
@@ -38,43 +48,88 @@ def build_parser() -> argparse.ArgumentParser:
                    help="The width of the map")
     p.add_argument("--height", type=int, default=60,
                    help="The height of the map")
+    p.add_argument("--logodds_map_path", type=str,
+                   default="logodds_map.png",
+                   help="The path to save the map")
+    p.add_argument("--texture_map_path", type=str,
+                   default="texture_map.png",
+                   help="The path to save the texture map")
+    p.add_argument("--generate_texture_map", action="store_true",
+                   help="Generate the texture map (not yet ported)")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="Run on an N-step synthetic dataset instead of "
                         "reading npz files")
+    p.add_argument("--synthetic_revisit", type=int, default=0, metavar="N",
+                   help="Run on an N-step synthetic revisit scene (not yet "
+                        "ported)")
+    p.add_argument("--synthetic_laps", type=int, default=1,
+                   help="Laps for --synthetic_revisit")
     p.add_argument("--output_dir", type=str, default="outputs/",
                    help="Directory for stage .npy artifacts")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (cuda, cuda:1, cpu)")
-    # main.py flags of capabilities this port does not have yet
-    p.add_argument("--filter_lidar", action="store_true",
-                   help="(not yet ported)")
-    p.add_argument("--generate_texture_map", action="store_true",
-                   help="(not yet ported)")
+    p.add_argument("--save_logodds", type=str, default=None,
+                   metavar="PATH.npy",
+                   help="Also save the final log-odds grid (.npy); implies "
+                        "building the map")
+    p.add_argument("--load_poses", type=str, default=None,
+                   help="Resume from a saved poses .npy: skip pose "
+                        "estimation and only build the map")
     p.add_argument("--loop_proposer", type=str, default="fixed",
                    choices=["fixed", "proximity", "descriptor"],
                    help="only 'fixed' is ported")
     p.add_argument("--robust_loss", type=str, default="none",
                    choices=["none", "huber", "cauchy"],
                    help="only 'none' is ported")
+    p.add_argument("--proximity_seed", type=str, default="identity",
+                   choices=["identity", "estimate"],
+                   help="only 'identity' is ported")
+    p.add_argument("--proximity_trim", type=float, default=1.0,
+                   help="only 1.0 is ported")
     p.add_argument("--icp_metric", type=str, default="point",
                    choices=["point", "point_to_line"],
                    help="only 'point' is ported")
+    p.add_argument("--export_ros_map", type=str, default=None,
+                   metavar="STEM", help="(not yet ported)")
+    p.add_argument("--export_tum", type=str, default=None, metavar="PATH",
+                   help="(not yet ported)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (cuda, cuda:1, cpu)")
     return p
 
 
 def _unported(args) -> list[str]:
     out = []
     if args.filter_lidar:
-        out.append("--filter_lidar")
+        out.append("--filter_lidar"
+                   + (" (with --load_poses)" if args.load_poses else ""))
     if args.generate_texture_map:
         out.append("--generate_texture_map")
+    if args.synthetic_revisit > 0:
+        out.append("--synthetic_revisit")
     if args.loop_proposer != "fixed":
         out.append(f"--loop_proposer {args.loop_proposer}")
     if args.robust_loss != "none":
         out.append(f"--robust_loss {args.robust_loss}")
+    if args.proximity_seed != "identity":
+        out.append(f"--proximity_seed {args.proximity_seed}")
+    if args.proximity_trim != 1.0:
+        out.append(f"--proximity_trim {args.proximity_trim}")
     if args.icp_metric != "point":
         out.append(f"--icp_metric {args.icp_metric}")
+    if args.export_ros_map:
+        out.append("--export_ros_map")
+    if args.export_tum:
+        out.append("--export_tum")
     return out
+
+
+def image_paths(args) -> tuple[str, str]:
+    """(log-odds map PNG, texture map PNG) as main.py derives them
+    (main.py:153-160); --generate_texture_map writes them once texture is
+    ported."""
+    img_dir = "images_filtered/" if args.filter_lidar else "images/"
+    suffix = f"_{args.mode}_{args.dataset}.png"
+    return tuple(img_dir + path.split(".")[0] + suffix
+                 for path in (args.logodds_map_path, args.texture_map_path))
 
 
 def main(argv=None) -> int:
@@ -83,8 +138,6 @@ def main(argv=None) -> int:
     unported = _unported(args)
     if unported:
         parser.error(f"not yet ported: {', '.join(unported)}")
-
-    import numpy as np
 
     from . import sensors
     from .config import MapConfig, SlamConfig
@@ -107,12 +160,32 @@ def main(argv=None) -> int:
 
     cfg = SlamConfig(map=MapConfig.from_cli(args.res, args.width,
                                             args.height))
-    result = slam.run_slam(
-        encoder.counts_synced, imu.gyro_synced, lidar.ranges_synced,
-        float(lidar.range_min), float(lidar.range_max), mode=args.mode,
-        fixed_interval=args.fixed_interval, cfg=cfg, device=device)
+    # main.py:224-226: the map is built only for an output that reads it
+    build_map = (args.generate_texture_map or bool(args.save_logodds)
+                 or bool(args.export_ros_map))
+    if args.load_poses:
+        result = slam.resume_from_poses(
+            io.load_numpy(args.load_poses), lidar.ranges_synced,
+            float(lidar.range_min), float(lidar.range_max),
+            filter_lidar=args.filter_lidar, cfg=cfg, build_map=build_map,
+            device=device)
+        print(f"(resumed from {args.load_poses})")
+    else:
+        result = slam.run_slam(
+            encoder.counts_synced, imu.gyro_synced, lidar.ranges_synced,
+            float(lidar.range_min), float(lidar.range_max), mode=args.mode,
+            fixed_interval=args.fixed_interval, cfg=cfg,
+            build_map=build_map, device=device)
+        _save_stage_artifacts(io, result, args.output_dir, d)
+    if args.save_logodds:
+        io.save_numpy(result.logodds, args.save_logodds)
+        print(f"log-odds grid saved at {args.save_logodds}")
+    print("stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in result.stage_seconds.items()))
+    return 0
 
-    out = args.output_dir
+
+def _save_stage_artifacts(io, result, out: str, d: int) -> None:
     arts = {f"poses_odom_{d}": result.poses_odom,
             f"relative_poses_odom_{d}": result.relative_poses_odom}
     if result.poses_scan_matching is not None:
@@ -122,13 +195,9 @@ def main(argv=None) -> int:
     if result.poses_optimized is not None:
         arts[f"poses_optimized_{d}"] = result.poses_optimized
         print(f"Added {result.n_loop_closures} loop closures")
-    arts[f"logodds_{args.mode}_{d}"] = result.logodds
     for name, arr in arts.items():
-        io.save_numpy(np.asarray(arr), os.path.join(out, name + ".npy"))
+        io.save_numpy(arr, os.path.join(out, name + ".npy"))
         print(f"{name}.npy saved at {out}")
-    print("stage seconds: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in result.stage_seconds.items()))
-    return 0
 
 
 if __name__ == "__main__":

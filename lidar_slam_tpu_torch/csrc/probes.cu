@@ -17,18 +17,18 @@
 // zero the output under program_id == 0; here a loop inside the block
 // takes the place of the grid, and each kernel writes its whole output.
 //
-// Exactness without barriers or atomics. Every probe adds in a fixed order
-// (update order, segment order or emit order). The TPU tiles are (8, 128)
-// (P1-P4, P7, P8) or (64, 128) (P9), always at offsets that are multiples
-// of the tile, so a cell has one tile-local position (s, l) whatever tile
-// covers it. The thread that owns (s, l) does every add to the cells at
-// that position, in order; no other thread touches them, so each cell's
-// float32 sum is the sequential one. The TPU's masked RMW also adds 0.0 to
-// the rest of the tile; x + 0.0 == x for every x except -0.0 and NaN, which
-// no probe's grid holds (it starts at +0.0 or at finite random values, and
-// a round-to-nearest sum of nonzero terms is never -0.0), so those adds
-// are skipped. Cells outside the grid are dropped (the tools never
-// produce them).
+// Exactness without float atomics. Every probe adds in a fixed order
+// (update order, segment order or emit order). P1-P4 and P9: the TPU tiles
+// are (8, 128) or (64, 128), always at offsets that are multiples of the
+// tile, so a cell has one tile-local position (s, l) whatever tile covers
+// it. The thread that owns (s, l) does every add to the cells at that
+// position, in order; no other thread touches them, so each cell's float32
+// sum is the sequential one. The TPU's masked RMW also adds 0.0 to the rest
+// of the tile; x + 0.0 == x for every x except -0.0 and NaN, which no
+// probe's grid holds (it starts at +0.0 or at finite random values, and a
+// round-to-nearest sum of nonzero terms is never -0.0), so those adds are
+// skipped. P7 partitions its updates stably by cell, P8 counts (below).
+// Cells outside the grid are dropped (the tools never produce them).
 //
 // What bounds them on an H100. P1-P5 move under 70 KB: one launch, a few
 // microseconds. P6 writes the padded 1208 x 1216 grid (5.9 MB): bytes,
@@ -40,32 +40,30 @@
 // in global memory, resident in L2.
 //
 // Designs. P1-P4: one block of 1,024 threads, one per (8, 128) position.
-// P5: one thread. P6: a grid-stride fill. P7, P8: block b owns the grid's
-// rows [8b, 8b + 8) (the TPU tile's row band), thread (s, l) the band's
-// cells in row 8b + s whose column is l mod 128; the block reads the
-// updates 1,024 at a time, compacts those that touch its band in order
-// (a ballot and per-warp counts), and each owner
-// applies its cells' adds in that order. P9: one block of 1,024 threads,
-// eight positions of the (64, 128) tile each; the word table is read from
-// device memory (one broadcast load per emit) or, in mode fullv, staged
-// through shared memory: the counterpart of the TPU's SMEM scalar
-// prefetch against a VMEM block.
+// P5: one thread. P6: a grid-stride fill. P7, P8: see "P7 and P8" below.
+// P9: one block of 1,024 threads, eight positions of the (64, 128) tile
+// each; the word table is read from device memory (one broadcast load per
+// emit) or, in mode fullv, staged through shared memory: the counterpart of
+// the TPU's SMEM scalar prefetch against a VMEM block.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int TS = 8;      // rows of the (8, 128) tile
 constexpr int TL = 128;    // lanes of a tile (both tile shapes)
 constexpr int TILE_THREADS = TS * TL;  // one thread per (8, 128) position
-constexpr int TILE_WARPS = TILE_THREADS / 32;
 
 // P9's (64, 128) tile, eight positions a thread
 constexpr int VS = 64;
 constexpr int V_PER_THREAD = VS * TL / TILE_THREADS;
 constexpr int V_STAGE = 2048;  // word columns staged per round in fullv
 constexpr int RAY_W_MAX = 4096;
+constexpr int SEG_THREADS = 256;  // P8's block
 
 enum VpuMode { RMW = 0, VEC = 1, FULL = 2, FULLV = 3, RAY1 = 4, RAY2 = 5 };
 
@@ -143,108 +141,416 @@ __global__ void fill_kernel(float* __restrict__ out, size_t n, float val) {
     out[e] = val;
 }
 
-// The threads whose `hit` is set, numbered in thread order: returns this
-// thread's slot among them and sets total (the same in every thread).
-// Starts with a barrier after the warp counts are written.
-__device__ __forceinline__ int compact_hits(bool hit, int* warp_count,
-                                            int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-  if (lane == 0) warp_count[warp] = __popc(ballot);
+// -- P7 and P8: partition, then order ------------------------------------
+//
+// Replaced: scatter_microbench.py::mb_rmw_kernel (:71, P7) and
+// mb_seg_kernel (:115, P8), one (8, 128) tile RMW per update or segment
+// into a VMEM-resident grid, in order. Bound on an H100: bytes, the
+// updates read once (12 B an update, 16 B a segment) and the grid written
+// once: 0.00411 ms (P7, u = 657,408) and 0.00215 ms (P8, 82,432 segments).
+//
+// P7 is order-dependent: its values are +-1.386 and mixed (any float32 in
+// general), and float32 addition does not associate, so each cell's adds
+// must run in update order. The design partitions the updates stably
+// (never scanning all of them in every block):
+//   1. tile_rmw_count_kernel: a block takes a chunk of BIN_BT * BIN_IPT
+//      updates, counts them per owner tile (OR x OC cells) and ranks each
+//      among the earlier updates of its owner in the chunk (stable_rank);
+//      writes the (owner, chunk) counts and the ranks;
+//   2. tile_rmw_scan_kernel: per owner, the exclusive prefix of its counts
+//      over the chunks (a warp scan), and its total;
+//   3. tile_rmw_fill_kernel: each block scans the owner totals into list
+//      bases (block 0 writes them out, each owner's first window of
+//      OR * OC * OWN_IPT entries and each window's owner) and writes
+//      every in-grid update, as (cell in the owner tile, value), at base +
+//      chunk prefix + rank: each owner's list in update order, with no
+//      atomics;
+//   4. tile_rmw_sort_kernel: a block a window, all owners' windows at
+//      once: sorts the window by cell stably in shared memory (stable_rank
+//      again, a scan of the cell counts, a scatter to global memory);
+//   5. tile_rmw_sum_kernel: a block an owner, a thread a cell: stages the
+//      owner's sorted windows in shared memory in order and adds its
+//      cell's runs with __fadd_rn in a register, then writes the cell, so
+//      the block writes its whole tile, zeros included, and nothing zeroes
+//      the grid first.
+// No block reads another owner's updates, and no barrier round is spent a
+// 1,024 updates in every block; a hot owner's windows sort in parallel,
+// and only its ordered adds stay in one block. On the tool's updates the
+// sort and sum passes bound the whole: about 1,600 blocks of 1,024
+// threads each, two a multiprocessor, each about ten barrier phases long.
+
+// P8 is order-free: every add is the same val into a grid that starts at
+// +0.0, so a cell hit k times holds S_k = fl(...fl(fl(0 + val) + val)...)
+// (k adds), whatever the order of the segments. So one cooperative kernel
+// zeroes the output viewed as int32 counts, counts the hits of each cell
+// with integer atomics, and turns each count k into S_k by k sequential
+// __fadd_rn, a grid barrier between the passes (one launch: the host's
+// launch path costs more than the device's work at the tool's size).
+// A float atomicAdd(val) would not do: PTX atom.add.f32 flushes subnormal
+// inputs and results, so it is not exact for every val.
+
+constexpr unsigned ALL_LANES = 0xffffffffu;
+
+// The exclusive prefix of v over the block's BT threads (BT a multiple of
+// 32); total gets the sum. warp_sums holds 32 ints. Barriers inside; the
+// last one lets the caller reuse warp_sums at once.
+template <int BT>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
+                                                    int& total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(ALL_LANES, incl, d);
+    if (lane >= d) incl += t;
+  }
+  if (lane == 31) warp_sums[w] = incl;
   __syncthreads();
-  int offset = __popc(ballot & ((1u << lane) - 1u));
-  total = 0;
-  for (int w = 0; w < TILE_WARPS; ++w) {
-    if (w < warp) offset += warp_count[w];
-    total += warp_count[w];
+  if (w == 0) {
+    int s = lane < BT / 32 ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(ALL_LANES, s, d);
+      if (lane >= d) s += t;
+    }
+    warp_sums[lane] = s;
   }
-  return offset;
+  __syncthreads();
+  total = warp_sums[BT / 32 - 1];
+  const int before = w > 0 ? warp_sums[w - 1] : 0;
+  __syncthreads();
+  return before + incl - v;
 }
 
-// P7: out = 0, then out[x_i, y_i] += v_i for every update i in order.
-__global__ void __launch_bounds__(TILE_THREADS)
-tile_rmw_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
-                const float* __restrict__ vs, int u, float* __restrict__ out,
-                int W, int H) {
-  __shared__ int qx[TILE_THREADS], qy[TILE_THREADS];
-  __shared__ float qv[TILE_THREADS];
-  __shared__ int warp_count[TILE_WARPS];
-  const int band = blockIdx.x, s = threadIdx.x / TL, l = threadIdx.x % TL;
-  const int row = band * TS + s;
-  if (row < W)
-    for (int y = l; y < H; y += TL) out[(size_t)row * H + y] = 0.f;
-  for (int base = 0; base < u; base += TILE_THREADS) {
-    const int j = base + threadIdx.x;
-    int x = -1, y = 0;
-    float v = 0.f;
-    if (j < u) {
-      x = xs[j];
-      y = ys[j];
-      v = vs[j];
+// Row stride of stable_rank's per-warp counts for nb bins: a multiple of 8
+// uint16 (16 bytes).
+__host__ __device__ constexpr int hist_stride(int nb) { return (nb + 7) & ~7; }
+
+// Stable counting rank over a block. Item j of thread (warp w, lane l) is
+// item w * 32 IPT + 32 j + l of the block's sequence of n items; key[j] is
+// its bin in [0, nb), or -1 for none (and for every item past n). rank[j]
+// gets the number of earlier items of the sequence in the same bin,
+// totals[b * stride] the count of bin b (a shared or a global pointer).
+// hist is BT / 32 rows of hist_stride(nb) uint16 in shared memory:
+// per-warp counts, then per-warp prefixes; only the warps that hold items
+// use their rows. A warp ranks its 32 items a round by __match_any_sync
+// and its own counts, in order; then each bin's counts are prefixed across
+// the warps. The counts are order-free integers; the ranks keep the
+// sequence order. Ends after a barrier.
+template <int BT, int IPT>
+__device__ __forceinline__ void stable_rank(const int (&key)[IPT], int n,
+                                            int nb, uint16_t* hist,
+                                            int* __restrict__ totals,
+                                            int stride, int (&rank)[IPT]) {
+  constexpr int NW = BT / 32;
+  static_assert(NW % 8 == 0, "the prefix loop takes 8 rows at a time");
+  const int nw = min(NW, (n + 32 * IPT - 1) / (32 * IPT));
+  const int hs = hist_stride(nb);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  uint4* h128 = reinterpret_cast<uint4*>(hist);
+  for (int e = threadIdx.x; e < nw * hs / 8; e += BT)
+    h128[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  uint16_t* mine = hist + w * hs;
+  const unsigned lower = (1u << lane) - 1u;
+  if (w < nw) {  // the other warps hold no items
+#pragma unroll
+    for (int j = 0; j < IPT; ++j) {
+      const int k = key[j];
+      const unsigned peers = __match_any_sync(ALL_LANES, k);
+      const int leader = __ffs(peers) - 1;
+      int old = 0;
+      if (k >= 0 && lane == leader) {
+        old = mine[k];
+        mine[k] = (uint16_t)(old + __popc(peers));
+      }
+      rank[j] = __shfl_sync(ALL_LANES, old, leader) + __popc(peers & lower);
+      __syncwarp();
     }
-    const bool hit = x >= 0 && x < W && y >= 0 && y < H && (x >> 3) == band;
-    int total;
-    const int at = compact_hits(hit, warp_count, total);
-    if (hit) {
-      qx[at] = x;
-      qy[at] = y;
-      qv[at] = v;
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += BT) {
+    int run = 0;
+#pragma unroll
+    for (int v0 = 0; v0 < NW; v0 += 8) {
+      if (v0 >= nw) break;
+      int c[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        c[q] = v0 + q < nw ? hist[(v0 + q) * hs + b] : 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (v0 + q < nw) {
+          hist[(v0 + q) * hs + b] = (uint16_t)run;
+          run += c[q];
+        }
     }
+    totals[(size_t)b * stride] = run;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < IPT; ++j)
+    if (key[j] >= 0) rank[j] += mine[key[j]];
+}
+
+// P7's owner tile (the TPU's 8 x 128 tile; 16 x 16 owners measured 1.7x
+// slower, their binning carrying 5,776 owner bins a chunk), its binning
+// blocks and its windows.
+struct Own {
+  static constexpr int OR = 8, OC = 128;  // owner rows, columns
+  static constexpr int CELLS = OR * OC;  // a thread a cell in passes 4, 5
+  static constexpr int BIN_BT = 1024, BIN_IPT = 8;  // binning blocks
+  static constexpr int OWN_IPT = 4;  // window: OR * OC * OWN_IPT entries
+};
+
+// P7 pass 1: per chunk, each owner's count (table[owner][chunk], the table
+// owner-major) and each in-grid update's rank among its owner's earlier
+// updates in the chunk.
+__global__ void __launch_bounds__(Own::BIN_BT)
+tile_rmw_count_kernel(const int32_t* __restrict__ xs,
+                      const int32_t* __restrict__ ys, int u, int W, int H,
+                      int n_owners, int* __restrict__ table,
+                      uint16_t* __restrict__ ranks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int IPT = Own::BIN_IPT;
+  const int OH = (H + Own::OC - 1) / Own::OC;
+  const int first = blockIdx.x * Own::BIN_BT * IPT +
+                    (threadIdx.x >> 5) * 32 * IPT + (threadIdx.x & 31);
+  int key[IPT], rank[IPT];
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    const int i = first + 32 * j;
+    key[j] = -1;
+    if (i < u) {
+      const int x = xs[i], y = ys[i];
+      if (x >= 0 && x < W && y >= 0 && y < H)
+        key[j] = x / Own::OR * OH + y / Own::OC;
+    }
+  }
+  stable_rank<Own::BIN_BT, IPT>(key, u - blockIdx.x * Own::BIN_BT * IPT,
+                              n_owners, reinterpret_cast<uint16_t*>(smem),
+                              table + blockIdx.x, gridDim.x, rank);
+#pragma unroll
+  for (int j = 0; j < IPT; ++j)
+    if (key[j] >= 0) ranks[first + 32 * j] = (uint16_t)rank[j];
+}
+
+// P7 pass 2: per owner (a warp), the exclusive prefix of its counts over
+// the chunks (its table row, in place; 32 chunks a round, one a lane) and
+// its total.
+__global__ void tile_rmw_scan_kernel(int* __restrict__ table, int n_chunks,
+                                     int n_owners, int* __restrict__ totals) {
+  const int o = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (o >= n_owners) return;  // warp-uniform
+  int* row = table + (size_t)o * n_chunks;
+  int run = 0;
+  for (int c0 = 0; c0 < n_chunks; c0 += 32) {
+    const int c = c0 + lane;
+    const int v = c < n_chunks ? row[c] : 0;
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(ALL_LANES, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (c < n_chunks) row[c] = run + incl - v;
+    run += __shfl_sync(ALL_LANES, incl, 31);
+  }
+  if (lane == 0) totals[o] = run;
+}
+
+// P7 pass 3: the owner lists' bases (block 0 writes them to bounds, with
+// the total last) and every in-grid update, as (cell in the owner tile,
+// value bits), at its place in its owner's list.
+__global__ void __launch_bounds__(Own::BIN_BT)
+tile_rmw_fill_kernel(const int32_t* __restrict__ xs,
+                     const int32_t* __restrict__ ys,
+                     const float* __restrict__ vs, int u, int W, int H,
+                     int n_owners, const int* __restrict__ table,
+                     const int* __restrict__ totals,
+                     const uint16_t* __restrict__ ranks,
+                     int* __restrict__ bounds, int* __restrict__ wbase,
+                     int* __restrict__ win_owner,
+                     int2* __restrict__ entries) {
+  extern __shared__ int base[];  // n_owners
+  __shared__ int warp_sums[32];
+  constexpr int IPT = Own::BIN_IPT;
+  const int per = (n_owners + Own::BIN_BT - 1) / Own::BIN_BT;
+  const int o0 = threadIdx.x * per;
+  int sum = 0;
+  for (int k = 0; k < per && o0 + k < n_owners; ++k) sum += totals[o0 + k];
+  int all;
+  int run = block_exclusive_scan<Own::BIN_BT>(sum, warp_sums, all);
+  for (int k = 0; k < per && o0 + k < n_owners; ++k) {
+    base[o0 + k] = run;
+    if (blockIdx.x == 0) bounds[o0 + k] = run;
+    run += totals[o0 + k];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) bounds[n_owners] = all;
+  if (blockIdx.x == 0) {
+    // each owner's first window among all owners' windows, and each
+    // window's owner
+    constexpr int WIN = Own::CELLS * Own::OWN_IPT;
+    int nwin = 0;
+    for (int k = 0; k < per && o0 + k < n_owners; ++k)
+      nwin += (totals[o0 + k] + WIN - 1) / WIN;
+    int wall;
+    int wrun = block_exclusive_scan<Own::BIN_BT>(nwin, warp_sums, wall);
+    for (int k = 0; k < per && o0 + k < n_owners; ++k) {
+      wbase[o0 + k] = wrun;
+      for (int q = 0; q < (totals[o0 + k] + WIN - 1) / WIN; ++q)
+        win_owner[wrun++] = o0 + k;
+    }
+    if (threadIdx.x == 0) wbase[n_owners] = wall;
+  }
+  __syncthreads();
+  const int OH = (H + Own::OC - 1) / Own::OC;
+  const int* col = table + blockIdx.x;  // this chunk's column
+  const int first = blockIdx.x * Own::BIN_BT * IPT +
+                    (threadIdx.x >> 5) * 32 * IPT + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    const int i = first + 32 * j;
+    if (i >= u) break;
+    const int x = xs[i], y = ys[i];
+    if (x < 0 || x >= W || y < 0 || y >= H) continue;
+    const int o = x / Own::OR * OH + y / Own::OC;
+    const int cell = x % Own::OR * Own::OC + y % Own::OC;
+    entries[base[o] + col[(size_t)o * gridDim.x] + ranks[i]] =
+        make_int2(cell, __float_as_int(vs[i]));
+  }
+}
+
+// The run of n values from run[0], added to acc in order; loads a batch
+// ahead of the dependent adds.
+__device__ __forceinline__ float add_run(float acc, const float* run, int n) {
+  int k = 0;
+  for (; k + 8 <= n; k += 8) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = run[k + q];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc = __fadd_rn(acc, v[q]);
+  }
+  for (; k < n; ++k) acc = __fadd_rn(acc, run[k]);
+  return acc;
+}
+
+// P7 pass 4: block b sorts window b of all owners' windows (in owner
+// order) by cell, stably, into `sorted` at the window's own positions, and
+// writes each cell's run in it as meta[b][cell] = start | count << 16.
+__global__ void __launch_bounds__(Own::CELLS, 2048 / Own::CELLS)
+tile_rmw_sort_kernel(const int* __restrict__ bounds,
+                     const int* __restrict__ wbase,
+                     const int* __restrict__ win_owner, int n_owners,
+                     const int2* __restrict__ entries,
+                     float* __restrict__ sorted,
+                     uint32_t* __restrict__ meta) {
+  constexpr int BT = Own::CELLS, IPT = Own::OWN_IPT, WIN = BT * IPT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* hist = reinterpret_cast<uint16_t*>(smem);
+  int* start = reinterpret_cast<int*>(hist + BT / 32 * hist_stride(BT));
+  __shared__ int warp_sums[32];
+  const int b = blockIdx.x;
+  if (b >= wbase[n_owners]) return;  // block-uniform
+  const int o = win_owner[b];
+  const int win = bounds[o] + (b - wbase[o]) * WIN;
+  const int end = min(win + WIN, bounds[o + 1]);
+  const int at = (threadIdx.x >> 5) * 32 * IPT + (threadIdx.x & 31);
+  int key[IPT], rank[IPT];
+  float val[IPT];
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    const int idx = win + at + 32 * j;
+    const int2 e = idx < end ? entries[idx] : make_int2(-1, 0);
+    key[j] = e.x;
+    val[j] = __int_as_float(e.y);
+  }
+  stable_rank<BT, IPT>(key, end - win, BT, hist, start, 1, rank);
+  const int n = start[threadIdx.x];
+  int total;
+  const int s = block_exclusive_scan<BT>(n, warp_sums, total);
+  meta[(size_t)b * BT + threadIdx.x] = (uint32_t)s | (uint32_t)n << 16;
+  start[threadIdx.x] = s;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < IPT; ++j)
+    if (key[j] >= 0) sorted[win + start[key[j]] + rank[j]] = val[j];
+}
+
+// P7 pass 5: block o stages its owner's sorted windows in shared memory
+// one at a time, in order; each thread adds its cell's runs with
+// __fadd_rn, then writes the cell (zeros included).
+__global__ void __launch_bounds__(Own::CELLS, 2048 / Own::CELLS)
+tile_rmw_sum_kernel(const int* __restrict__ bounds,
+                    const int* __restrict__ wbase,
+                    const float* __restrict__ sorted,
+                    const uint32_t* __restrict__ meta,
+                    float* __restrict__ out, int W, int H) {
+  constexpr int BT = Own::CELLS, WIN = BT * Own::OWN_IPT;
+  __shared__ float buf[WIN];
+  const int o = blockIdx.x, w0 = wbase[o], w1 = wbase[o + 1];
+  const int last = bounds[o + 1];
+  float acc = 0.f;
+  for (int b = w0, win = bounds[o]; b < w1; ++b, win += WIN) {
+    const uint32_t m = meta[(size_t)b * BT + threadIdx.x];
+    __syncthreads();  // the previous window is summed
+    for (int e = threadIdx.x; e < min(WIN, last - win); e += BT)
+      buf[e] = sorted[win + e];
     __syncthreads();
-    for (int k = 0; k < total; ++k)
-      if (qx[k] == row && (qy[k] & (TL - 1)) == l)
-        add_cell(out, W, H, row, qy[k], qv[k]);
-    __syncthreads();  // the queue is refilled next
+    acc = add_run(acc, buf + (m & 0xffffu), (int)(m >> 16));
   }
+  const int OH = (H + Own::OC - 1) / Own::OC;
+  const int x = o / OH * Own::OR + threadIdx.x / Own::OC;
+  const int y = o % OH * Own::OC + threadIdx.x % Own::OC;
+  if (x < W && y < H) out[(size_t)x * H + y] = acc;
 }
 
-// P8: out = 0, then per segment (x8, yl, a, b), in order: the cells
-// (x8 + s, yl + l) with s == floor((l a + b) / 1024) and l < 96 += val.
-// int32 arithmetic wraps, as XLA's does.
-__global__ void __launch_bounds__(TILE_THREADS)
+// S_k: k sequential __fadd_rn of val from +0.0.
+__device__ __forceinline__ float k_fold_sum(int k, float val) {
+  float acc = 0.f;
+  for (int i = 0; i < k; ++i) acc = __fadd_rn(acc, val);
+  return acc;
+}
+
+// P8, one cooperative launch, three passes a grid barrier apart: zero the
+// grid (as int32 counts); a warp a segment (lanes l, l + 32, l + 64), one
+// integer atomicAdd a hit; each count k becomes S_k in place. Four cells
+// a thread in the first and last pass (cells a multiple of 4). int32
+// arithmetic wraps, as XLA's does.
+__global__ void __launch_bounds__(SEG_THREADS)
 segment_rmw_kernel(const int32_t* __restrict__ x8s,
                    const int32_t* __restrict__ yls,
                    const int32_t* __restrict__ as,
                    const int32_t* __restrict__ bs, int n, float val,
                    float* __restrict__ out, int W, int H) {
-  __shared__ int qx[TILE_THREADS], qy[TILE_THREADS], qa[TILE_THREADS],
-      qb[TILE_THREADS];
-  __shared__ int warp_count[TILE_WARPS];
-  const int band = blockIdx.x, p = threadIdx.x % TL;
-  const int row = band * TS + threadIdx.x / TL;
-  if (row < W)
-    for (int y = p; y < H; y += TL) out[(size_t)row * H + y] = 0.f;
-  for (int base = 0; base < n; base += TILE_THREADS) {
-    const int j = base + threadIdx.x;
-    bool hit = false;
-    int x8 = 0, yl = 0, a = 0, b = 0;
-    if (j < n) {
-      x8 = x8s[j];
-      yl = yls[j];
-      a = as[j];
-      b = bs[j];
-      // rows [x8, x8 + 8) meet the band [8 band, 8 band + 8)
-      hit = x8 <= band * TS + TS - 1 && x8 >= band * TS - TS + 1;
+  cg::grid_group grid = cg::this_grid();
+  int4* quads = reinterpret_cast<int4*>(out);
+  const size_t n_quads = (size_t)W * H / 4;
+  const size_t tid = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  const size_t n_threads = (size_t)gridDim.x * blockDim.x;
+  for (size_t e = tid; e < n_quads; e += n_threads)
+    quads[e] = make_int4(0, 0, 0, 0);
+  grid.sync();
+  int* counts = reinterpret_cast<int*>(out);
+  for (size_t seg = tid >> 5; seg < (size_t)n; seg += n_threads >> 5) {
+    const unsigned x8 = x8s[seg], yl = yls[seg], a = as[seg], b = bs[seg];
+    for (int l = threadIdx.x & 31; l < 96; l += 32) {
+      const int r = (int)((unsigned)l * a + b) >> 10;  // floor(/ 1024)
+      if (r < 0 || r >= TS) continue;
+      const int x = (int)(x8 + (unsigned)r), y = (int)(yl + (unsigned)l);
+      if (x >= 0 && x < W && y >= 0 && y < H)
+        atomicAdd(counts + (size_t)x * H + y, 1);
     }
-    int total;
-    const int at = compact_hits(hit, warp_count, total);
-    if (hit) {
-      qx[at] = x8;
-      qy[at] = yl;
-      qa[at] = a;
-      qb[at] = b;
-    }
-    __syncthreads();
-    for (int k = 0; k < total; ++k) {
-      const int s = row - qx[k];
-      if (s < 0 || s >= TS) continue;
-      // the one column of [yl, yl + 128) that is p mod 128
-      const int l = (p - qy[k]) & (TL - 1);
-      const int r =
-          (int)((unsigned)l * (unsigned)qa[k] + (unsigned)qb[k]) >> 10;
-      if (r == s && l < 96) add_cell(out, W, H, row, qy[k] + l, val);
-    }
-    __syncthreads();
+  }
+  grid.sync();
+  for (size_t e = tid; e < n_quads; e += n_threads) {
+    const int4 k = quads[e];
+    quads[e] = make_int4(__float_as_int(k_fold_sum(k.x, val)),
+                         __float_as_int(k_fold_sum(k.y, val)),
+                         __float_as_int(k_fold_sum(k.z, val)),
+                         __float_as_int(k_fold_sum(k.w, val)));
   }
 }
 
@@ -367,6 +673,107 @@ vpu_loop_kernel(const int32_t* __restrict__ words, int cols, int n_pairs,
 
 int last_error() { return (int)cudaGetLastError(); }
 
+// P7's scratch layout for u updates on a (W, H) grid: the lists' entries
+// (int2, u), the (owner, chunk) table, owner totals, list bounds and first
+// windows (n_owners + 1 each), each window's owner (at most max_windows),
+// the sorted windows (float, u), the windows' runs (uint32, a cell of each
+// window) and the ranks (uint16, u).
+struct TileRmwPlan {
+  static constexpr int BT = Own::CELLS, WIN = BT * Own::OWN_IPT;
+  int n_chunks, n_owners, max_windows;
+  size_t table, totals, bounds, wbase, win_owner, sorted, meta, ranks, bytes;
+  TileRmwPlan(int u, int W, int H) {
+    const int chunk = Own::BIN_BT * Own::BIN_IPT;
+    n_chunks = (u + chunk - 1) / chunk;
+    n_owners = ((W + Own::OR - 1) / Own::OR) * ((H + Own::OC - 1) / Own::OC);
+    max_windows = n_owners + (u + WIN - 1) / WIN;
+    table = 8 * (size_t)u;  // the entries (int2) first
+    totals = table + 4 * (size_t)n_chunks * n_owners;
+    bounds = totals + 4 * (size_t)n_owners;
+    wbase = bounds + 4 * ((size_t)n_owners + 1);
+    win_owner = wbase + 4 * ((size_t)n_owners + 1);
+    sorted = win_owner + 4 * (size_t)max_windows;
+    meta = sorted + 4 * (size_t)u;
+    ranks = meta + 4 * (size_t)max_windows * BT;
+    bytes = ranks + 2 * (size_t)u;
+  }
+  size_t hist_bytes() const {  // tile_rmw_count_kernel's shared memory
+    return 2 * (size_t)(Own::BIN_BT / 32) * hist_stride(n_owners);
+  }
+  static size_t sort_bytes() {  // tile_rmw_sort_kernel's shared memory
+    return 2 * (size_t)(BT / 32) * hist_stride(BT) + 4 * BT;
+  }
+};
+
+constexpr size_t MAX_SHARED = 232448;  // a block's limit on an H100
+constexpr size_t DEFAULT_SHARED = 49152;  // without the attribute
+constexpr int MAX_DEVICES = 64;  // devices the per-device caches hold
+
+// The current device, or -1 when it cannot be read or lies past the
+// per-device caches.
+int current_device() {
+  int dev;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return -1;
+  return dev;
+}
+
+// Lets P7's count and sort kernels take more than the default shared
+// memory, once per device (the attribute is the device's); returns the
+// CUDA error of the first call that failed.
+int tile_rmw_attributes() {
+  static bool set[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (set[dev]) return 0;
+  int rc = (int)cudaFuncSetAttribute(
+      tile_rmw_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)MAX_SHARED);
+  if (rc == 0)
+    rc = (int)cudaFuncSetAttribute(
+        tile_rmw_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)TileRmwPlan::sort_bytes());
+  set[dev] = rc == 0;
+  return rc;
+}
+
+int tile_rmw_launch(const int32_t* xs, const int32_t* ys, const float* vs,
+                    int u, float* out, int W, int H, unsigned char* scratch,
+                    long long scratch_bytes, cudaStream_t st) {
+  const TileRmwPlan plan(u, W, H);
+  if (u < 0 || W <= 0 || H <= 0 || (long long)plan.bytes > scratch_bytes ||
+      plan.hist_bytes() > MAX_SHARED ||
+      4 * (size_t)plan.n_owners > DEFAULT_SHARED)
+    return (int)cudaErrorInvalidValue;
+  if (u == 0)
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)W * H, st);
+  int rc = tile_rmw_attributes();
+  if (rc != 0) return rc;
+  int2* entries = reinterpret_cast<int2*>(scratch);
+  int* table = reinterpret_cast<int*>(scratch + plan.table);
+  int* totals = reinterpret_cast<int*>(scratch + plan.totals);
+  int* bounds = reinterpret_cast<int*>(scratch + plan.bounds);
+  int* wbase = reinterpret_cast<int*>(scratch + plan.wbase);
+  int* win_owner = reinterpret_cast<int*>(scratch + plan.win_owner);
+  float* sorted = reinterpret_cast<float*>(scratch + plan.sorted);
+  uint32_t* meta = reinterpret_cast<uint32_t*>(scratch + plan.meta);
+  uint16_t* ranks = reinterpret_cast<uint16_t*>(scratch + plan.ranks);
+  tile_rmw_count_kernel<<<plan.n_chunks, Own::BIN_BT, plan.hist_bytes(),
+                          st>>>(xs, ys, u, W, H, plan.n_owners, table, ranks);
+  tile_rmw_scan_kernel<<<(plan.n_owners + 7) / 8, 256, 0, st>>>(
+      table, plan.n_chunks, plan.n_owners, totals);
+  tile_rmw_fill_kernel<<<plan.n_chunks, Own::BIN_BT,
+                         4 * (size_t)plan.n_owners, st>>>(
+      xs, ys, vs, u, W, H, plan.n_owners, table, totals, ranks, bounds,
+      wbase, win_owner, entries);
+  tile_rmw_sort_kernel<<<plan.max_windows, Own::CELLS,
+                         TileRmwPlan::sort_bytes(), st>>>(
+      bounds, wbase, win_owner, plan.n_owners, entries, sorted, meta);
+  tile_rmw_sum_kernel<<<plan.n_owners, Own::CELLS, 0, st>>>(
+      bounds, wbase, sorted, meta, out, W, H);
+  return last_error();
+}
+
 }  // namespace
 
 // P1-P4: inputs of n entries, output (W, H) float32, written whole. One
@@ -420,28 +827,51 @@ extern "C" int slam_probe_fill(void* out, long long n, float val,
   return last_error();
 }
 
-// P7: u updates (xs, ys int32, vs float32) into out (W, H) float32.
-extern "C" int slam_probe_tile_rmw(const void* xs, const void* ys,
-                                   const void* vs, int u, void* out, int W,
-                                   int H, void* stream) {
-  if (W <= 0 || H <= 0) return 0;
-  tile_rmw_kernel<<<(W + TS - 1) / TS, TILE_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)xs, (const int32_t*)ys, (const float*)vs, u, (float*)out,
-      W, H);
-  return last_error();
+// P7: the scratch bytes slam_probe_tile_rmw needs.
+extern "C" long long slam_probe_tile_rmw_scratch(int u, int W, int H) {
+  return (long long)TileRmwPlan(u, W, H).bytes;
 }
 
-// P8: n segments (x8, yl, a, b int32) into out (W, H) float32.
+// P7: u updates (xs, ys int32, vs float32) into out (W, H) float32, written
+// whole; scratch of at least slam_probe_tile_rmw_scratch bytes. Five
+// kernels on `stream` (one memset when u == 0).
+extern "C" int slam_probe_tile_rmw(const void* xs, const void* ys,
+                                   const void* vs, int u, void* out, int W,
+                                   int H, void* scratch,
+                                   long long scratch_bytes, void* stream) {
+  return tile_rmw_launch((const int32_t*)xs, (const int32_t*)ys,
+                         (const float*)vs, u, (float*)out, W, H,
+                         (unsigned char*)scratch, scratch_bytes,
+                         (cudaStream_t)stream);
+}
+
+// P8: n segments (x8, yl, a, b int32) into out (W, H) float32, W * H a
+// multiple of 4: one cooperative launch of as many blocks as fit on the
+// card at once, on `stream`.
 extern "C" int slam_probe_segment_rmw(const void* x8, const void* yl,
                                       const void* a, const void* b, int n,
                                       float val, void* out, int W, int H,
                                       void* stream) {
-  if (W <= 0 || H <= 0) return 0;
-  segment_rmw_kernel<<<(W + TS - 1) / TS, TILE_THREADS, 0,
-                       (cudaStream_t)stream>>>(
-      (const int32_t*)x8, (const int32_t*)yl, (const int32_t*)a,
-      (const int32_t*)b, n, val, (float*)out, W, H);
-  return last_error();
+  if (n < 0 || W <= 0 || H <= 0 || ((size_t)W * H) % 4)
+    return (int)cudaErrorInvalidValue;
+  static int co_resident[MAX_DEVICES] = {};  // blocks, per device
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (co_resident[dev] == 0) {
+    int sms, per_sm;
+    int rc = (int)cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == 0)
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, segment_rmw_kernel, SEG_THREADS, 0);
+    if (rc != 0) return rc;
+    co_resident[dev] = sms * per_sm;
+  }
+  const int blocks = co_resident[dev];
+  void* args[] = {&x8, &yl, &a, &b, &n, &val, &out, &W, &H};
+  return (int)cudaLaunchCooperativeKernel((const void*)segment_rmw_kernel,
+                                          blocks, SEG_THREADS, args, 0,
+                                          (cudaStream_t)stream);
 }
 
 // P9: mode 0-5 (rmw, vec, full, fullv, ray1, ray2); words (rows, cols)

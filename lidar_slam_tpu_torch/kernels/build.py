@@ -116,11 +116,13 @@ def library() -> ctypes.CDLL:
         "slam_probe_masked_tile": [p, p, i, f, p, i, i, p],
         "slam_probe_scalar_sum": [p, i, p, p],
         "slam_probe_fill": [p, i64, f, p],
-        "slam_probe_tile_rmw": [p, p, p, i, p, i, i, p],
+        "slam_probe_tile_rmw": [p, p, p, i, p, i, i, p, i64, p],
         "slam_probe_segment_rmw": [p, p, p, p, i, f, p, i, i, p],
         "slam_probe_vpu_loop": [p, i, i, i, i, f, p, i, i, p],
     }
     for name, argtypes in probes.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i
+    lib.slam_probe_tile_rmw_scratch.argtypes = [i, i, i]
+    lib.slam_probe_tile_rmw_scratch.restype = i64
     return lib

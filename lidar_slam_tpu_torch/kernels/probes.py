@@ -10,12 +10,15 @@ version: a build or launch failure raises.
 
 Shared semantics: every probe adds in a fixed order (update, segment or
 emit order) into a float32 grid, so kernel and plain version agree bit for
-bit. The plain versions add through a 1-D index_add_, which on the CPU adds
-in index order whatever the thread count, or loop in order. Cells outside
-the grid are dropped.
+bit. A wrapper's .launches counts one a call, however many CUDA kernels
+the call runs. The plain versions add through a 1-D index_add_, which on
+the CPU adds in index order whatever the thread count, or loop in order.
+Cells outside the grid are dropped.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -49,12 +52,15 @@ def _check_pairs(xs: torch.Tensor, ys: torch.Tensor) -> None:
 
 def _launch(wrapper, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point on the current stream of `device`; count the
-    launch on `wrapper` and raise if it was refused."""
-    lib = build.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-        wrapper.launches += 1
+    launch on `wrapper` and raise if it was refused. Switches the current
+    device only when `device` is not it (the switch costs host time)."""
+    fn = getattr(build.library(), entry)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    wrapper.launches += 1
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
 
@@ -262,6 +268,17 @@ full_grid.plain = full_grid_plain
 
 
 # -- P7, P8 (tools/scatter_microbench.py): map-update strategies -----------
+#
+# P7's kernel partitions the updates stably: by owner tile over chunks of
+# TILE_RMW_CHUNK updates (counts, a scan over the chunks, ranks, a fill),
+# then inside each owner by cell, and sums each cell's run in order. P8's
+# adds are all the same value into a zero grid, so it counts hits per cell
+# and turns a count k into the k-fold sum. tile_rmw_design and
+# segment_rmw_design are those designs in PyTorch, for the CPU tests.
+
+TILE_RMW_OWNER = (TS, LANES)  # P7's owner tile (the kernel's Own)
+TILE_RMW_CHUNK = 8192  # updates a binning block takes
+
 
 def tile_rmw_cells(xs: torch.Tensor, ys: torch.Tensor, vs: torch.Tensor):
     return xs, ys, vs
@@ -272,22 +289,112 @@ def tile_rmw_plain(xs: torch.Tensor, ys: torch.Tensor,
     return _add_in_order(_zeros(GRID_SHAPE, xs.device), xs, ys, vs)
 
 
+def _stable_rank(keys: torch.Tensor) -> torch.Tensor:
+    """For each element, the number of earlier elements with its key."""
+    order = torch.argsort(keys, stable=True)
+    sorted_keys = keys[order]
+    pos = torch.arange(len(keys), device=keys.device)
+    new = torch.ones_like(sorted_keys, dtype=torch.bool)
+    new[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    first = torch.cummax(torch.where(new, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - first
+    return rank
+
+
+def tile_rmw_lists(xs: torch.Tensor, ys: torch.Tensor, vs: torch.Tensor,
+                   chunk: int = TILE_RMW_CHUNK):
+    """P7's stable partition by owner tile, as its count, scan and fill
+    kernels compute it: (bounds (n_owners + 1,), cells, vals). Owner o
+    (row-major over the owner grid) holds entries [bounds[o], bounds[o +
+    1]): the in-grid updates of its tile in update order, each as its cell
+    inside the tile (row-major) and its value."""
+    W, H = GRID_SHAPE
+    OR, OC = TILE_RMW_OWNER
+    OH = -(-H // OC)
+    n_owners = -(-W // OR) * OH
+    x, y = xs.long(), ys.long()
+    ok = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    i = torch.arange(len(xs), device=xs.device)[ok]
+    x, y, v = x[ok], y[ok], vs[ok]
+    o = x // OR * OH + y // OC
+    c = i // chunk
+    n_chunks = -(-len(xs) // chunk)
+    counts = torch.bincount(c * n_owners + o, minlength=n_chunks * n_owners)
+    counts = counts.view(n_chunks, n_owners)
+    prefix = counts.cumsum(0) - counts  # over the chunks, per owner
+    totals = counts.sum(0)
+    base = totals.cumsum(0) - totals
+    pos = base[o] + prefix[c, o] + _stable_rank(c * n_owners + o)
+    cells = torch.empty_like(o)
+    vals = torch.empty_like(v)
+    cells[pos] = x % OR * OC + y % OC
+    vals[pos] = v
+    bounds = torch.cat([base, totals.sum().reshape(1)])
+    return bounds, cells, vals
+
+
+def tile_rmw_design(xs: torch.Tensor, ys: torch.Tensor,
+                    vs: torch.Tensor) -> torch.Tensor:
+    """P7 by its kernels' design: the owner lists (tile_rmw_lists), each
+    sorted by cell stably, then every cell's run summed in order, one add
+    at a time (the kernels sort each window of a list by cell and add the
+    windows' runs in list order, which is the same order)."""
+    W, H = GRID_SHAPE
+    OR, OC = TILE_RMW_OWNER
+    bounds, cells, vals = tile_rmw_lists(xs, ys, vs)
+    n_owners = len(bounds) - 1
+    per_owner = bounds[1:] - bounds[:-1]
+    key = torch.repeat_interleave(
+        torch.arange(n_owners, device=xs.device), per_owner) * (OR * OC)
+    key = key + cells
+    count = torch.bincount(key, minlength=n_owners * OR * OC)
+    start = count.cumsum(0) - count
+    run = torch.empty_like(vals)
+    run[start[key] + _stable_rank(key)] = vals
+    # the cells by falling count: step j adds the j-th value of every run
+    # longer than j, the first live[j] of them
+    order = torch.argsort(count, descending=True, stable=True)
+    live = len(count) - torch.bincount(count).cumsum(0)
+    first = start[order]
+    sums = torch.zeros(len(count), dtype=torch.float32, device=xs.device)
+    for j, m in enumerate(live[:-1].tolist()):
+        sums[:m] = sums[:m] + run[first[:m] + j]
+    acc = torch.empty_like(sums)
+    acc[order] = sums
+    OW = -(-W // OR)
+    tiles = acc.view(OW, n_owners // OW, OR, OC).permute(0, 2, 1, 3)
+    return tiles.reshape(OW * OR, -1)[:W, :H].contiguous()
+
+
 def tile_rmw(xs: torch.Tensor, ys: torch.Tensor,
              vs: torch.Tensor) -> torch.Tensor:
     """P7: a zero (1208, 1216) grid with grid[x_i, y_i] += v_i for every update
     i in order (the TPU did one (8, 128) tile RMW per update). xs, ys (u,)
-    int32, vs (u,) float32."""
+    int32, vs (u,) float32. On the card: five kernels (count, scan, fill,
+    sort, sum; see csrc/probes.cu) over (8, 128) owner tiles, scratch from
+    torch.empty; tile_rmw.launches counts one a call."""
     if not xs.is_cuda:
         return tile_rmw_plain(xs, ys, vs)
     for name, t, dt in (("xs", xs, torch.int32), ("ys", ys, torch.int32),
                         ("vs", vs, torch.float32)):
         _check(name, t, dt, 1, xs.device)
-    if not len(xs) == len(ys) == len(vs):
+    u = xs.shape[0]
+    if not u == ys.shape[0] == vs.shape[0]:
         raise ValueError("xs, ys and vs must have one length")
     out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=xs.device)
+    nbytes = _tile_rmw_scratch(u)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=xs.device)
     _launch(tile_rmw, "slam_probe_tile_rmw", xs.device, xs.data_ptr(),
-            ys.data_ptr(), vs.data_ptr(), len(xs), out.data_ptr(), *GRID_SHAPE)
+            ys.data_ptr(), vs.data_ptr(), u, out.data_ptr(), *GRID_SHAPE,
+            scratch.data_ptr(), nbytes)
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_rmw_scratch(u: int) -> int:
+    """Scratch bytes of tile_rmw's kernels for u updates (the C layout)."""
+    return build.library().slam_probe_tile_rmw_scratch(u, *GRID_SHAPE)
 
 
 tile_rmw.launches = 0
@@ -310,21 +417,39 @@ def segment_rmw_plain(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,
                          *segment_rmw_cells(x8, yl, a, b))
 
 
+def segment_rmw_design(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """P8 by its kernel's design: each cell's hit count k, then S_k, the
+    k-fold in-order float32 sum of -1.386 from +0.0 (every add is the same
+    value, so the order of the segments cannot show)."""
+    W, H = GRID_SHAPE
+    flat, _ = adds(segment_rmw, x8, yl, a, b)
+    count = torch.bincount(flat, minlength=W * H)
+    val = torch.tensor(-LOG4, dtype=torch.float32)
+    sums = [torch.zeros((), dtype=torch.float32)]
+    for _ in range(int(count.max())):
+        sums.append(sums[-1] + val)
+    return torch.stack(sums).to(x8.device)[count].view(W, H)
+
+
 def segment_rmw(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """P8: a zero (1208, 1216) grid; per segment (x8, yl, a, b), in order, the
     cells (x8 + s, yl + l) of its (8, 128) tile with s == floor((l a + b) /
     1024) and l < 96 get -1.386 (one RMW per segment on the TPU). All (n,)
-    int32."""
+    int32. On the card: one cooperative kernel that zeroes, counts the
+    hits of each cell and turns a count k into the k-fold sum (see
+    csrc/probes.cu); segment_rmw.launches counts one a call."""
     if not x8.is_cuda:
         return segment_rmw_plain(x8, yl, a, b)
     for name, t in (("x8", x8), ("yl", yl), ("a", a), ("b", b)):
         _check(name, t, torch.int32, 1, x8.device)
-    if not len(x8) == len(yl) == len(a) == len(b):
+    n = x8.shape[0]
+    if not n == yl.shape[0] == a.shape[0] == b.shape[0]:
         raise ValueError("x8, yl, a and b must have one length")
     out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=x8.device)
     _launch(segment_rmw, "slam_probe_segment_rmw", x8.device, x8.data_ptr(),
-            yl.data_ptr(), a.data_ptr(), b.data_ptr(), len(x8), -LOG4,
+            yl.data_ptr(), a.data_ptr(), b.data_ptr(), n, -LOG4,
             out.data_ptr(), *GRID_SHAPE)
     return out
 

@@ -208,13 +208,56 @@ def run_slam(
 
     result.poses = final_poses.cpu().numpy()
     if build_map:
-        K = occupancy.adaptive_ray_cells(points, masks, cfg.map,
-                                         float(range_max))
-        logodds = occupancy.build_logodds(final_poses, points, masks,
-                                          cfg.map, K)
-        result.ray_cells = K
-        result.logodds = logodds.cpu().numpy()
-        result.grid_map = occupancy.finalize_grid(logodds).cpu().numpy()
+        _build_map(result, final_poses, points, masks, cfg, range_max)
         stage["map_build"] = time.perf_counter() - t1
     result.stage_seconds = stage
+    return result
+
+
+def _build_map(result: SlamResult, poses, points, masks, cfg: SlamConfig,
+               range_max: float) -> None:
+    """The log-odds map of the scans at `poses` (K1 on the card) into
+    result.logodds, result.grid_map and result.ray_cells."""
+    K = occupancy.adaptive_ray_cells(points, masks, cfg.map, float(range_max))
+    logodds = occupancy.build_logodds(poses, points, masks, cfg.map, K)
+    result.ray_cells = K
+    result.logodds = logodds.cpu().numpy()
+    result.grid_map = occupancy.finalize_grid(logodds).cpu().numpy()
+
+
+def resume_from_poses(
+    poses,
+    ranges,
+    range_min: float,
+    range_max: float,
+    filter_lidar: bool = False,
+    cfg: SlamConfig = SlamConfig(),
+    build_map: bool = True,
+    device="cuda",
+) -> SlamResult:
+    """Checkpoint/resume: rebuild the map from a saved pose trajectory
+    (N, 3), skipping pose estimation (main.py --load_poses).
+
+    Counterpart of lidar_slam_tpu/models/slam.py::resume_from_poses: the
+    poses become poses_odom and poses, their relative transforms
+    relative_poses_odom, and the map is built as run_slam builds it, in
+    float32 on `device`.
+    """
+    if filter_lidar:
+        raise NotImplementedError("filter_lidar is not yet ported")
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    poses, ranges = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in (poses, ranges))
+    points, masks = scan_ops.scans_to_points(ranges, range_min, range_max,
+                                             cfg.lidar)
+    host = poses.cpu().numpy()
+    result = SlamResult(
+        poses_odom=host,
+        relative_poses_odom=se2.get_relative_pose(poses[:-1],
+                                                  poses[1:]).cpu().numpy(),
+        poses=host)
+    if build_map:
+        _build_map(result, poses, points, masks, cfg, range_max)
+        result.stage_seconds = {"map_build": time.perf_counter() - t0}
     return result

@@ -544,47 +544,93 @@ def _int32(rng, lo, hi, n):
     return torch.as_tensor(rng.integers(lo, hi, n), dtype=torch.int32)
 
 
-@pytest.mark.parametrize("case", ["rays_4096", "rays_100000", "random"])
-def test_tile_rmw_bit_exact(dev, case):
-    """P7: ray-shaped updates (many adds per cell, in order), and random
-    ones including cells outside the grid (dropped)."""
-    if case == "random":
-        rng = np.random.default_rng(8)
-        W, H = probes.GRID_SHAPE
-        u = 50_000
-        args = (_int32(rng, -20, W + 20, u), _int32(rng, -20, H + 20, u),
+def _tile_rmw_args(case: str):
+    """(xs, ys, vs) CPU tensors of one P7 case."""
+    rng = np.random.default_rng(8)
+    W, H = probes.GRID_SHAPE
+    if case.startswith("rays_"):
+        return tuple(map(torch.from_numpy, scatter_microbench.make_updates(
+            int(case.split("_")[1]), 3)))
+    u = {"random": 50_000, "hot_cell": 200_000, "empty": 0,
+         "outside": 20_000, "single_tile": 30_000,
+         "signed_zeros": 20_000}[case]
+    vs = torch.as_tensor(rng.choice([-1.0, 1.0], u)
+                         * 10.0 ** rng.uniform(-3, 3, u), dtype=torch.float32)
+    if case == "random":  # cells outside the grid included (dropped)
+        return (_int32(rng, -20, W + 20, u), _int32(rng, -20, H + 20, u),
                 torch.as_tensor(rng.normal(0, 1e3, u), dtype=torch.float32))
-    else:
-        u = int(case.split("_")[1])
-        args = tuple(map(torch.from_numpy,
-                         scatter_microbench.make_updates(u, 3)))
+    if case == "outside":
+        return (_int32(rng, W, W + 100, u), _int32(rng, -50, H, u), vs)
+    if case == "single_tile":  # one (8, 128) owner tile
+        return _int32(rng, 600, 608, u), _int32(rng, 512, 640, u), vs
+    if case == "signed_zeros":  # +-0.0 among +-1.5 on a 4 x 4 patch
+        return (_int32(rng, 300, 304, u), _int32(rng, 700, 704, u),
+                torch.as_tensor(rng.choice([-0.0, 0.0, 1.5, -1.5], u),
+                                dtype=torch.float32))
+    xs, ys = _int32(rng, 0, W, u), _int32(rng, 0, H, u)
+    if case == "hot_cell":  # a quarter of the adds on one cell, in order
+        hot = torch.as_tensor(rng.choice(u, u // 4, replace=False))
+        xs[hot], ys[hot] = 601, 300
+    return xs, ys, vs
+
+
+@pytest.mark.parametrize("case", ["rays_4096", "rays_100000", "random",
+                                  "hot_cell", "empty", "outside",
+                                  "single_tile", "signed_zeros"])
+def test_tile_rmw_bit_exact(dev, case):
+    """P7: ray-shaped updates (many adds per cell, in order), random ones
+    including cells outside the grid (dropped), one cell taking a quarter
+    of 200,000 adds of mixed sign and magnitude, none, all outside the
+    grid, all in one owner tile, and signed zeros among +-1.5."""
+    args = _tile_rmw_args(case)
     before = probes.tile_rmw.launches
     got = probes.tile_rmw(*(a.to(dev) for a in args))
     torch.cuda.synchronize()
     assert probes.tile_rmw.launches == before + 1
-    _same_bits(got, probes.tile_rmw(*args))
+    want = probes.tile_rmw(*args)
+    _same_bits(got, want)
+    assert bool(want.any()) == (case not in ("empty", "outside"))
 
 
-@pytest.mark.parametrize("aligned", [True, False])
-def test_segment_rmw_bit_exact(dev, aligned):
-    """P8 on the tool's segments, and on unaligned tile offsets (a segment
-    then spans two row bands) partly outside the grid."""
-    if aligned:
-        args = tuple(map(torch.from_numpy,
-                         scatter_microbench.seg_args(5000, 2)))
-    else:
-        rng = np.random.default_rng(9)
-        W, H = probes.GRID_SHAPE
-        n = 5000
-        args = (_int32(rng, -10, W, n), _int32(rng, -100, H, n),
+def _segment_args(case: str):
+    """(x8, yl, a, b) CPU tensors of one P8 case."""
+    rng = np.random.default_rng(9)
+    W, H = probes.GRID_SHAPE
+    n = 5000
+    if case == "aligned":
+        return tuple(map(torch.from_numpy,
+                         scatter_microbench.seg_args(n, 2)))
+    if case == "unaligned":  # a segment spans two row bands; some outside
+        return (_int32(rng, -10, W, n), _int32(rng, -100, H, n),
                 _int32(rng, -1024, 1024, n), _int32(rng, -8192, 8192, n))
+    if case == "outside":
+        return (_int32(rng, W, W + 50, n), _int32(rng, -100, H, n),
+                _int32(rng, -1024, 1024, n), _int32(rng, -8192, 8192, n))
+    if case == "empty":
+        return tuple(torch.zeros(0, dtype=torch.int32) for _ in range(4))
+    # single tile: 50,000 segments on one tile in 10 line shapes, so each
+    # cell of a line takes about 5,000 adds
+    k = torch.as_tensor(rng.integers(0, 10, 50_000), dtype=torch.int32)
+    return (torch.full_like(k, 600), torch.full_like(k, 512), 100 * k + 1,
+            700 * k)
+
+
+@pytest.mark.parametrize("case", ["aligned", "unaligned", "single_tile",
+                                  "empty", "outside"])
+def test_segment_rmw_bit_exact(dev, case):
+    """P8 on the tool's segments, on unaligned tile offsets (a segment then
+    spans two row bands) partly outside the grid, on one tile hit 50,000
+    times, on no segments and on segments all outside the grid."""
+    args = _segment_args(case)
     before = probes.segment_rmw.launches
     got = probes.segment_rmw(*(a.to(dev) for a in args))
     torch.cuda.synchronize()
     assert probes.segment_rmw.launches == before + 1
     want = probes.segment_rmw(*args)
     _same_bits(got, want)
-    assert int((want != 0).sum()) > 1000
+    assert int((want != 0).sum()) > {"aligned": 1000, "unaligned": 1000,
+                                     "single_tile": 90}.get(case, -1)
+    assert bool(want.any()) == (case not in ("empty", "outside"))
 
 
 @pytest.mark.parametrize("mode,n_pairs,reps", [

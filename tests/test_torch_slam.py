@@ -135,10 +135,18 @@ def test_run_slam_matches_jax(log, mode, dt, interval):
 
 def test_cli_matches_main_py(tmp_path, monkeypatch, capsys):
     """python -m lidar_slam_tpu_torch and the JAX package's main.py on the
-    same on-disk dataset: the same stage artifacts under the same names
-    (plus the port's log-odds array), poses within the pipeline bound."""
+    same on-disk dataset: every main.py flag under its name and default,
+    the same stage artifacts under the same names (no map without
+    --save_logodds), poses within the pipeline bound."""
     import main as jax_main
+    from lidar_slam_tpu_torch.__main__ import build_parser
     from tests.test_driver_oracle import _write_dataset
+
+    want_flags = {a.dest: a.default for a in jax_main.build_parser()._actions}
+    have = {a.dest: a.default for a in build_parser()._actions}
+    assert len(want_flags) == 25
+    assert {k: have.get(k, "missing") for k in want_flags} == want_flags
+    assert set(have) - set(want_flags) == {"device"}
 
     data = str(tmp_path / "data")
     _write_dataset(data, n_steps=40, n_rays=181)
@@ -151,35 +159,147 @@ def test_cli_matches_main_py(tmp_path, monkeypatch, capsys):
     assert "Added" in capsys.readouterr().out
     want = sorted(os.listdir(tmp_path / "jax"))
     assert len(want) == 5
-    assert sorted(os.listdir(tmp_path / "port")) == sorted(
-        want + ["logodds_gtsam_20.npy"])
+    assert sorted(os.listdir(tmp_path / "port")) == want
     for name in want:
         a = np.load(tmp_path / "jax" / name)
         b = np.load(tmp_path / "port" / name)
         assert a.shape == b.shape, name
         np.testing.assert_allclose(b, a, rtol=0, atol=POSE_TOL, err_msg=name)
-    lo = np.load(tmp_path / "port" / "logodds_gtsam_20.npy")
-    assert lo.shape == (1201, 1201) and lo.dtype == np.float32
-    assert (lo < 0).sum() > 1000 and (lo > 0).sum() > 100
+    assert sorted(os.listdir(tmp_path)) == ["data", "jax", "port"]
 
 
 def test_cli_synthetic_dataset_21(tmp_path):
     out = str(tmp_path / "out")
+    grid = str(tmp_path / "grid.npy")
     rc = cli_main(["--mode", "odom", "--synthetic", "30", "--dataset", "21",
                    "--device", "cpu", "--res", "0.25", "--width", "40",
-                   "--height", "40", "--output_dir", out])
+                   "--height", "40", "--output_dir", out,
+                   "--save_logodds", grid])
     assert rc == 0
     poses = np.load(os.path.join(out, "poses_odom_21.npy"))
-    lo = np.load(os.path.join(out, "logodds_odom_21.npy"))
+    lo = np.load(grid)
     assert poses.shape == (30, 3) and lo.shape == (161, 161)
     assert np.isfinite(poses).all() and (lo != 0).any()
+
+
+SMALL_MAP = ["--res", "0.25", "--width", "40", "--height", "40"]
+
+
+def test_cli_writes_the_map_only_to_save_logodds(tmp_path):
+    """main.py's rule: no map without an output that reads it; with
+    --save_logodds, run_slam's grid at that path and nowhere else."""
+    from lidar_slam_tpu_torch import sensors as tsens
+    from lidar_slam_tpu_torch.utils import io as tio
+
+    base = ["--mode", "scan_matching", "--synthetic", "30", "--device",
+            "cpu", *SMALL_MAP]
+    assert cli_main(base + ["--output_dir", str(tmp_path / "a")]) == 0
+    assert sorted(os.listdir(tmp_path / "a")) == sorted(
+        f"{p}poses_{m}_20.npy" for p in ("", "relative_")
+        for m in ("odom", "scan_matching"))
+    grid = str(tmp_path / "map" / "grid.npy")
+    assert cli_main(base + ["--output_dir", str(tmp_path / "b"),
+                            "--save_logodds", grid]) == 0
+    assert sorted(os.listdir(tmp_path / "b")) == sorted(
+        os.listdir(tmp_path / "a"))
+    assert os.listdir(tmp_path / "map") == ["grid.npy"]
+
+    d = tio.synthetic_dataset(n_steps=30)
+    enc = tsens.Encoder.from_data(d["encoder"])
+    lid = tsens.Lidar.from_data(d["lidar"])
+    imu = tsens.Imu.from_data(d["imu"])
+    tsens.synchronize_sensors(enc, imu, lid, base_sensor_index=0)
+    want = tslam.run_slam(
+        enc.counts_synced, imu.gyro_synced, lid.ranges_synced,
+        float(lid.range_min), float(lid.range_max), mode="scan_matching",
+        cfg=tc.SlamConfig(map=tc.MapConfig.from_cli(0.25, 40, 40)),
+        device="cpu")
+    got = np.load(grid)
+    assert got.dtype == np.float32 and (got < 0).sum() > 100
+    np.testing.assert_array_equal(got, want.logodds)
+
+
+def test_cli_load_poses_matches_jax_resume(tmp_path, monkeypatch):
+    """--load_poses on the port's saved scan-matching poses: the map of
+    JAX main.py --load_poses (lidar_slam_tpu.models.slam.resume_from_poses)
+    on the same dataset and poses, bit for bit, and the first run's map;
+    no stage artifacts on resume."""
+    import main as jax_main
+    from tests.test_driver_oracle import _write_dataset
+
+    data = str(tmp_path / "data")
+    _write_dataset(data, n_steps=40, n_rays=181)
+    monkeypatch.chdir(tmp_path)
+    common = ["--dataset_path", data, *SMALL_MAP]
+    first, resumed = str(tmp_path / "first.npy"), str(tmp_path / "res.npy")
+    assert cli_main(common + ["--mode", "scan_matching", "--device", "cpu",
+                              "--output_dir", "port", "--save_logodds",
+                              first]) == 0
+    poses = str(tmp_path / "port" / "poses_scan_matching_20.npy")
+    assert cli_main(common + ["--load_poses", poses, "--device", "cpu",
+                              "--output_dir", "resume", "--save_logodds",
+                              resumed]) == 0
+    assert not os.path.exists(tmp_path / "resume")
+    jax_grid = str(tmp_path / "jax.npy")
+    jax_main.main(common + ["--load_poses", poses, "--output_dir", "jaxout",
+                            "--save_logodds", jax_grid])
+    got, want = np.load(resumed), np.load(jax_grid)
+    assert got.shape == (161, 161) and (got < 0).sum() > 100
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.load(first))
+
+
+def test_resume_from_poses_matches_jax(log):
+    """resume_from_poses against the JAX function on the same float32
+    poses and ranges: relative poses within the pipeline bound, the map bit
+    for bit; filter_lidar refused; build_map=False builds nothing."""
+    counts, gyro, ranges = (a[:40].astype(np.float32) for a in log)
+    poses = jodo.poses_from_odometry(jnp.asarray(counts),
+                                     jnp.asarray(gyro))
+    poses = np.array(poses, dtype=np.float32)
+    want = jslam.resume_from_poses(poses, ranges, 0.1, 30.0, cfg=_cfg(jc))
+    got = tslam.resume_from_poses(poses, ranges, 0.1, 30.0, cfg=_cfg(tc),
+                                  device="cpu")
+    np.testing.assert_array_equal(got.poses, want.poses)
+    np.testing.assert_allclose(got.relative_poses_odom,
+                               want.relative_poses_odom, rtol=0,
+                               atol=POSE_TOL)
+    np.testing.assert_array_equal(got.logodds, want.logodds)
+    np.testing.assert_array_equal(got.grid_map, want.grid_map)
+    assert (want.logodds != 0).sum() > 1000
+    bare = tslam.resume_from_poses(poses, ranges, 0.1, 30.0, cfg=_cfg(tc),
+                                   build_map=False, device="cpu")
+    assert bare.logodds is None and bare.grid_map is None
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tslam.resume_from_poses(poses, ranges, 0.1, 30.0, filter_lidar=True,
+                                device="cpu")
+
+
+def test_cli_image_paths_follow_main_py():
+    """main.py:153-160's derivation of the two map image paths."""
+    from lidar_slam_tpu_torch.__main__ import build_parser, image_paths
+
+    p = build_parser()
+    assert image_paths(p.parse_args(["--mode", "gtsam"])) == (
+        "images/logodds_map_gtsam_20.png", "images/texture_map_gtsam_20.png")
+    assert image_paths(p.parse_args(
+        ["--filter_lidar", "--dataset", "21", "--logodds_map_path", "a.b.png",
+         "--texture_map_path", "t.jpg"])) == (
+        "images_filtered/a_odom_21.png", "images_filtered/t_odom_21.png")
 
 
 @pytest.mark.parametrize("flags", [["--filter_lidar"],
                                    ["--generate_texture_map"],
                                    ["--loop_proposer", "proximity"],
                                    ["--robust_loss", "huber"],
-                                   ["--icp_metric", "point_to_line"]])
+                                   ["--icp_metric", "point_to_line"],
+                                   ["--synthetic_revisit", "50"],
+                                   ["--proximity_seed", "estimate"],
+                                   ["--proximity_trim", "0.55"],
+                                   ["--export_ros_map", "m"],
+                                   ["--export_tum", "t.txt"],
+                                   ["--load_poses", "p.npy",
+                                    "--filter_lidar"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as e:
         cli_main(["--synthetic", "10", "--device", "cpu"] + flags)
