@@ -60,11 +60,15 @@ first failure and catches nothing):
      launches) beside the CUDA-event time, for raywalk_scan over 100
      clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
      pairs; raywalk_build's binning and walk kernels over three main-path
-     builds, and the walk's ns a crossing of the hottest owner; P7's five
-     kernels and P8's one over 20 calls at the tools' sizes; and 100
-     online steps of a fresh stream (after 20 unprofiled ones): device
-     time and kernel launches a step, and the share of raywalk_scan and
-     nn_argmin (last, so the profiler cannot slow the timings before it).
+     builds, and the walk's ns a crossing of the hottest owner; P1-P6 over
+     100 launches each on the JAX tool's inputs, and the host's side of one
+     P6 call beside one torch.ones call (torch.profiler's CPU events and
+     the host clock); P7's five kernels and P8's one over 20 calls at the
+     tools' sizes; P9's kernel, by name, at [10]'s timed case and at the
+     tool's full mode (16,384 pairs x 8 repetitions); and 100 online steps
+     of a fresh stream (after 20 unprofiled ones): device time and kernel
+     launches a step, and the share of raywalk_scan and nn_argmin (last, so
+     the profiler cannot slow the timings before it).
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2 and K4; the
@@ -72,8 +76,8 @@ tools' run in [10] for P1-P9), its error against its plain version, its,
 the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
-K1, K2, K4, P7 and P8 with their profiler device times), and
-{"ok": true, "device": ...}.
+every kernel with its profiler device time; P9 also with the probe tool's
+slopes), and {"ok": true, "device": ...}.
 """
 
 import json
@@ -185,6 +189,46 @@ def pass_ms(fn, reps: int, names) -> dict:
         if None not in out.values():
             break
     return out
+
+
+def named_ms(fn, reps: int, part: str) -> dict:
+    """{kernel name: device ms a call of fn} of the device kernels whose
+    name holds `part`, over reps calls (after one unprofiled call); {} if
+    three profiled runs show none."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        hits = {k: v[0] / reps / 1e3 for k, v in device_kernels(fn, reps)
+                .items() if part in k and v[0] > 0}
+        if hits:
+            return hits
+    return {}
+
+
+def host_side(fn, reps: int):
+    """(host us a call of fn, {CPU event: self CPU us a call}): the host
+    clock over reps calls that only enqueue (one sync after them), and
+    torch.profiler's CPU events (CUDA runtime calls included) over reps
+    more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = {ev.key: ev.self_cpu_time_total / reps
+              for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total}
+    return host_us, events
 
 
 def nn_check(s, t, tm, reps: int):
@@ -423,7 +467,8 @@ def probe_phase(dev) -> list:
     log = lambda m: print(f"[10] {m}", flush=True)  # noqa: E731
     pallas_probe.run(log)
     scatter_microbench.run(log)
-    vpu_probe.run(log=log)
+    rows[probes.vpu_loop]["tool_slopes_ns"] = vpu_probe.run(log=log)[
+        "slopes"]
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in probes.WRAPPERS}
     print(f"[10] probe tools at the JAX tools' sizes: "
@@ -866,9 +911,65 @@ def main() -> int:
           f"{fmt(k1_ms['walk'])} a build{per_crossing}; CUDA events "
           f"{rw_ms:.3f} ms a build", flush=True)
 
-    # P7 and P8 a pass, at the probe tools' sizes
+    # P1-P6 a launch on the JAX tool's inputs, and P6's host side beside
+    # torch.ones
     from lidar_slam_tpu_torch.kernels import probes
-    from lidar_slam_tpu_torch.tools import scatter_microbench
+    from lidar_slam_tpu_torch.tools import (pallas_probe, scatter_microbench,
+                                            vpu_probe)
+
+    rows_by_name = {row["name"]: row for row in probe_rows}
+    for name, fn in pallas_probe.KERNELS.items():
+        args = [torch.as_tensor(a, device=dev)
+                for a in pallas_probe.inputs(name)] or [dev]
+        ms_by = named_ms(lambda: fn(*args), 100, fn.__name__ if
+                         fn is not probes.full_grid else "fill_kernel")
+        row = rows_by_name[fn.__name__]
+        row["device_ms"] = sum(ms_by.values()) if ms_by else None
+        print(f"[11] {fn.__name__} under torch.profiler, 100 launches: "
+              + (", ".join(f"{k} {v:.5f} ms" for k, v in ms_by.items())
+                 or "not measured")
+              + f" a launch; CUDA events {row['ms']:.4f} ms", flush=True)
+    for label, fn in (("full_grid(torch.device('cuda'))",
+                       lambda: probes.full_grid(dev)),
+                      ("torch.ones", lambda: torch.ones(probes.GRID_SHAPE,
+                                                        device=dev))):
+        host_us, events = host_side(fn, 200)
+        top = sorted(events.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[11] host side of {label}: {host_us:.2f} us a call by the "
+              f"host clock (enqueue only); torch.profiler CPU events, self "
+              f"us a call: " + ", ".join(f"{k} {v:.2f}" for k, v in top)
+              + f"; the rest (Python, ctypes) "
+              f"{host_us - sum(events.values()):.2f}", flush=True)
+
+    # P9 by name: [10]'s timed case and the tool's full mode at 8 reps
+    g512 = torch.as_tensor(np.random.default_rng(1).normal(
+        0, 1, (vpu_probe.GRID, vpu_probe.GRID)), dtype=torch.float32,
+        device=dev)
+    w_small = torch.as_tensor(vpu_probe.words_for(P9_TIME_PAIRS, 11),
+                              device=dev)
+    w_tool = torch.as_tensor(vpu_probe.words_for(vpu_probe.M1, 10),
+                             device=dev)
+    p9 = {"timed": named_ms(lambda: probes.vpu_loop(
+              w_small, g512.clone(), P9_TIME_PAIRS, "full", P9_TIME_REPS),
+              100, "vpu_loop_kernel"),
+          "full_16384x8": named_ms(lambda: probes.vpu_loop(
+              w_tool, g512, vpu_probe.M1, "full", 8), 5, "vpu_loop_kernel")}
+    p9_row = rows_by_name["vpu_loop"]
+    p9_row["device_ms"] = sum(p9["timed"].values()) if p9["timed"] else None
+    p9_row["device_ms_full_16384x8"] = (sum(p9["full_16384x8"].values())
+                                        if p9["full_16384x8"] else None)
+    print(f"[11] vpu_loop under torch.profiler: full mode, {P9_TIME_PAIRS} "
+          f"pairs x {P9_TIME_REPS} (100 calls): "
+          + (", ".join(f"{k} {v:.5f} ms" for k, v in p9["timed"].items())
+             or "not measured")
+          + f" a call (CUDA events, with the grid's clone, "
+          f"{p9_row['ms']:.4f} ms); full mode, {vpu_probe.M1} pairs x 8 (5 "
+          f"calls, {2 * vpu_probe.M1 * 8} visits): "
+          + (", ".join(f"{k} {v:.4f} ms"
+                       for k, v in p9["full_16384x8"].items())
+             or "not measured") + " a call", flush=True)
+
+    # P7 and P8 a pass, at the probe tools' sizes
 
     g7 = [torch.as_tensor(a, device=dev) for a in
           scatter_microbench.make_updates(scatter_microbench.UPDATES[0], 0)]

@@ -21,9 +21,10 @@
 // (update order, segment order or emit order). P1-P4 and P9: the TPU tiles
 // are (8, 128) or (64, 128), always at offsets that are multiples of the
 // tile, so a cell has one tile-local position (s, l) whatever tile covers
-// it. The thread that owns (s, l) does every add to the cells at that
-// position, in order; no other thread touches them, so each cell's float32
-// sum is the sequential one. The TPU's masked RMW also adds 0.0 to the rest
+// it. In P1-P4 the thread that owns (s, l) does every add to the cells at
+// that position, in order; in P9 a thread owns one cell of one tile
+// position and does its adds. No other thread touches them, so each cell's
+// float32 sum is the sequential one. The TPU's masked RMW also adds 0.0 to the rest
 // of the tile; x + 0.0 == x for every x except -0.0 and NaN, which no
 // probe's grid holds (it starts at +0.0 or at finite random values, and a
 // round-to-nearest sum of nonzero terms is never -0.0), so those adds are
@@ -34,17 +35,19 @@
 // microseconds. P6 writes the padded 1208 x 1216 grid (5.9 MB): bytes,
 // about 1.8 us at 3.35 TB/s; the grid exceeds the 227 KB of shared memory
 // a block can use and fits the 50 MB L2. P7 and P8 read their updates
-// (12 or 16 B each) and write the grid once: bytes. P9 is one block on one
-// SM by design (the TPU's grid=(1,)): it measures the serial cost of one
-// masked (64, 128) tile RMW per visit, and its grid (512 x 512, 1 MB) stays
-// in global memory, resident in L2.
+// (12 or 16 B each) and write the grid once: bytes. P9 reads its word table
+// and reads and writes its grid (512 x 512, 1 MB) once: bytes, under a
+// microsecond; what it measures is the cost of a masked (64, 128) tile
+// visit, spread over the card.
 //
 // Designs. P1-P4: one block of 1,024 threads, one per (8, 128) position.
-// P5: one thread. P6: a grid-stride fill. P7, P8: see "P7 and P8" below.
-// P9: one block of 1,024 threads, eight positions of the (64, 128) tile
-// each; the word table is read from device memory (one broadcast load per
-// emit) or, in mode fullv, staged through shared memory: the counterpart of
-// the TPU's SMEM scalar prefetch against a VMEM block.
+// P5: one thread. P6: 16-byte stores from the first 16-byte boundary (a
+// scalar head before it and a scalar tail after the last whole float4), a
+// float4 a thread, the grid sized from the element count and capped at
+// sixteen 256-thread blocks an SM. P7, P8: see "P7 and P8" below. P9: see
+// "P9" below (the TPU kernel's grid=(1,) was the whole v5e chip; one block
+// is 1/132 of an H100, so the new design spreads the tiles' cells over
+// the card and keeps each cell in a register).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -58,11 +61,8 @@ constexpr int TS = 8;      // rows of the (8, 128) tile
 constexpr int TL = 128;    // lanes of a tile (both tile shapes)
 constexpr int TILE_THREADS = TS * TL;  // one thread per (8, 128) position
 
-// P9's (64, 128) tile, eight positions a thread
-constexpr int VS = 64;
-constexpr int V_PER_THREAD = VS * TL / TILE_THREADS;
-constexpr int V_STAGE = 2048;  // word columns staged per round in fullv
-constexpr int RAY_W_MAX = 4096;
+constexpr int VS = 64;  // rows of P9's (64, 128) tile
+constexpr int RAY_W_MAX = 4096;  // P9's ray modes wrap the word table
 constexpr int SEG_THREADS = 256;  // P8's block
 
 enum VpuMode { RMW = 0, VEC = 1, FULL = 2, FULLV = 3, RAY1 = 4, RAY2 = 5 };
@@ -134,11 +134,21 @@ __global__ void scalar_sum_kernel(const float* __restrict__ xs, int n,
   out[0] = acc;
 }
 
-// P6: every element = val.
-__global__ void fill_kernel(float* __restrict__ out, size_t n, float val) {
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x)
-    out[e] = val;
+// P6: out[0, n) = val. The `head` elements before the first 16-byte
+// boundary and the tail after the n4 whole float4s of the body are written
+// one at a time (at most three each); the body a float4 a thread.
+constexpr int FILL_THREADS = 256;
+
+__global__ void __launch_bounds__(FILL_THREADS)
+fill_kernel(float* __restrict__ out, size_t head, size_t n4, size_t n,
+            float val) {
+  const size_t tid = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  float4* body = reinterpret_cast<float4*>(out + head);
+  const float4 v4 = make_float4(val, val, val, val);
+  for (size_t e = tid; e < n4; e += (size_t)gridDim.x * blockDim.x)
+    body[e] = v4;
+  if (tid < head) out[tid] = val;
+  if (tid < n - head - 4 * n4) out[head + 4 * n4 + tid] = val;
 }
 
 // -- P7 and P8: partition, then order ------------------------------------
@@ -554,120 +564,280 @@ segment_rmw_kernel(const int32_t* __restrict__ x8s,
   }
 }
 
-// P9 emit() of the pair modes (vpu_probe.py emit): unpack the word pair,
-// test tile membership of each owned cell, add +-val to the members.
-__device__ __forceinline__ void emit_pair(float* __restrict__ g, int W, int H,
-                                          int s0, int l, int C, int w2,
-                                          float val) {
-  const unsigned span = w2 & 127, d_lo = (w2 >> 7) & 255;
-  const int tile = w2 >> 15;
-  const int lt = (tile & 15) * TL, rt = (tile >> 4) * VS, d_end = C & 63;
-#pragma unroll
-  for (int k = 0; k < V_PER_THREAD; ++k) {
-    const int s = s0 + k * TS;
-    const unsigned v = (unsigned)(3 * s + 5 * l) + (unsigned)C;
-    if (v < 60000u && (unsigned)s - d_lo <= span)
-      add_cell(g, W, H, rt + s, lt + l, s == d_end ? val : -val);
+// -- P9: owners of sub-tiles, cells in registers ---------------------------
+//
+// Replaced: vpu_probe.py::make_kernel (:76), reps x n_pairs iterations of a
+// mode's body, each one or two masked (64, 128) tile RMWs ("visits") of a
+// VMEM-resident grid, in one grid step. Each cell's sum has to follow visit
+// order; nothing orders the cells of different tiles, and a visit's tile
+// (rt, lt) is always a multiple of (64, 128). So a block owns VO_ROWS x 128
+// cells of one tile position, a cell a thread: each cell has one owner,
+// whatever visit covers it. A thread loads its cell once, keeps the
+// running sum in a register over every visit and repetition, and stores it
+// once. The block finds its visits by filtering the visit sequence in
+// chunks of VO_THREADS: each thread tests one visit (its tile, and the band
+// [d_lo, d_lo + span] of the mask against the owner's rows, which a steep
+// ray's band on the lanes always meets), and a block scan compacts the
+// hits in order into a list in shared memory. One repetition's list is the
+// same in every repetition, so a list of at most VO_CAP entries is filtered
+// once and walked reps times; a longer one is filtered and walked a part
+// at a time, every repetition. The walk is the kernel's cost: every thread
+// of the block takes every entry, a few dozen instructions each, so the
+// card's issue rate bounds it, about 8,192 cell tests a visit.
+//
+// Modes. rmw and vec compute their words from the loop index; full reads a
+// visit's two words from device memory at the walk (a broadcast load each);
+// fullv keeps them in the list, staged in shared memory by the filter: the
+// counterpart of the TPU's SMEM scalar prefetch against a VMEM block. The
+// ray modes read the ray's six aux words at the walk and each thread
+// recomputes the v8 prologue (ca * DR + cb * other, the dM test, d_end)
+// for its own cell. A visit adds +-val (+1.0 in rmw) to the cells its
+// mask lets through; the TPU's 0.0 adds to the rest of the tile are skipped
+// (above).
+constexpr int VO_ROWS = 8;                // rows of an owner
+constexpr int VO_THREADS = VO_ROWS * TL;  // a cell a thread
+constexpr int VO_OWNERS = VS / VO_ROWS;   // owners of a tile position
+constexpr int VO_CAP = 4096;              // list entries (32 KB)
+
+// Visit v of a repetition: its pair i, half h (first or second visit of the
+// pair), word column j (i & (ray_w - 1) in the ray modes) and words (C, w2).
+template <int MODE>
+__device__ __forceinline__ void vpu_visit(const int32_t* __restrict__ w,
+                                          int cols, int ray_w, int v, int& j,
+                                          int& C, int& w2) {
+  const int i = MODE == RAY1 ? v : v >> 1, h = MODE == RAY1 ? 0 : v & 1;
+  j = MODE == RAY1 || MODE == RAY2 ? i & (ray_w - 1) : i;
+  if constexpr (MODE == RMW) {
+    // tile rows (i & 7) and ((i + 3) & 7), lanes [0, 128), no mask
+    C = 0;
+    w2 = ((i + 3 * h) & 7) << 19;
+  } else if constexpr (MODE == VEC) {
+    const int t = h ? ((i + 1) & 3) | ((((i >> 2) + 3) & 7) << 4)
+                    : (i & 3) | (((i >> 2) & 7) << 4);
+    C = (i + 7 * h) & 1023;
+    w2 = (h ? 51 | (9 << 7) : 37 | (5 << 7)) | (t << 15);
+  } else {
+    C = w[(size_t)(2 * h) * cols + j];
+    w2 = w[(size_t)(2 * h + 1) * cols + j];
   }
 }
 
-// P9 ray modes: the v8 ray prologue (six aux words, DR and V0 per cell)
-// and emit_r(), with the end row taken from the ray's deg word.
-struct RayCells {
-  int stp, deg;
-  unsigned dM;
-  unsigned v0[V_PER_THREAD];
+// Whether a visit (w2, column j) can write a cell of the owner of rows
+// [s_lo, s_lo + VO_ROWS) of tile (tx, ty): never a cell outside its tile,
+// nor (in the masked modes) a row outside its band (s - d_lo <= span,
+// unsigned) unless the band lies on the lanes (a steep ray).
+template <int MODE>
+__device__ __forceinline__ bool vpu_hits(const int32_t* __restrict__ w,
+                                         int cols, int j, int w2, int tx,
+                                         int ty, int s_lo) {
+  const int tile = w2 >> 15;
+  if ((tile >> 4) != tx || (tile & 15) != ty) return false;
+  if constexpr (MODE == RMW) return true;
+  if constexpr (MODE == RAY1 || MODE == RAY2)
+    if (w[4 * (size_t)cols + j] == 1) return true;
+  const int span = w2 & 127, d_lo = (w2 >> 7) & 255;
+  return d_lo < s_lo + VO_ROWS && d_lo + span >= s_lo;
+}
+
+// A visit's words as the walk takes them: (C, w2) and, in the ray modes,
+// the ray's six aux words (steep, sgM, sgm, dM, dm, deg).
+template <int MODE>
+struct VisitWords {
+  static constexpr int N = MODE == RAY1 || MODE == RAY2 ? 8 : 2;
+  int w[N];
 };
 
-__device__ __forceinline__ RayCells ray_prologue(const int32_t* __restrict__ w,
-                                                 int cols, int i, int s0,
-                                                 int l) {
-  RayCells r;
-  r.stp = w[4 * cols + i] == 1;
-  const int sgM = w[5 * cols + i], sgm = w[6 * cols + i];
-  const int dM = max(w[7 * cols + i], 1), dm = w[8 * cols + i];
-  r.deg = w[9 * cols + i];
-  r.dM = (unsigned)dM;
-  const unsigned ca = (unsigned)sgM * (unsigned)dm;
-  const unsigned cb = (0u - (unsigned)sgm) * (unsigned)dM;
+// List entry e's words: from the entry in fullv, from the loop index in
+// rmw and vec, from device memory in full and the ray modes.
+template <int MODE>
+__device__ __forceinline__ VisitWords<MODE> vpu_words(
+    const int32_t* __restrict__ w, int cols, int ray_w, int2 e) {
+  VisitWords<MODE> vw;
+  if constexpr (MODE == FULLV) {
+    vw.w[0] = e.x;
+    vw.w[1] = e.y;
+  } else {
+    int j;
+    vpu_visit<MODE>(w, cols, ray_w, e.x, j, vw.w[0], vw.w[1]);
+    if constexpr (VisitWords<MODE>::N == 8) {
 #pragma unroll
-  for (int k = 0; k < V_PER_THREAD; ++k) {
-    const int s = s0 + k * TS;
-    const unsigned dr = r.stp ? l : s, other = r.stp ? s : l;
-    r.v0[k] = ca * dr + cb * other;
+      for (int q = 0; q < 6; ++q) vw.w[2 + q] = w[(size_t)(4 + q) * cols + j];
+    }
   }
-  return r;
+  return vw;
 }
 
-__device__ __forceinline__ void emit_ray(float* __restrict__ g, int W, int H,
-                                         int s0, int l, const RayCells& r,
-                                         int C, int w2, float val) {
+// A visit on the cell (s, l) of the tile at (rt, lt): acc plus +-val where
+// the mask lets the cell through (vpu_probe.py emit(), or emit_r() after
+// the ray prologue in the ray modes), acc elsewhere.
+template <int MODE>
+__device__ __forceinline__ float vpu_add(float acc, const VisitWords<MODE>& vw,
+                                         int s, int l, int rt, int lt,
+                                         float val) {
+  if constexpr (MODE == RMW) return __fadd_rn(acc, 1.f);
+  const int C = vw.w[0], w2 = vw.w[1];
   const unsigned span = w2 & 127, d_lo = (w2 >> 7) & 255;
-  const int tile = w2 >> 15;
-  const int lt = (tile & 15) * TL, rt = (tile >> 4) * VS;
-  const int d_end = r.deg - (r.stp ? lt : rt);
-#pragma unroll
-  for (int k = 0; k < V_PER_THREAD; ++k) {
-    const int s = s0 + k * TS;
-    const int dr = r.stp ? l : s;
-    if (r.v0[k] + (unsigned)C < r.dM && (unsigned)dr - d_lo <= span)
-      add_cell(g, W, H, rt + s, lt + l, dr == d_end ? val : -val);
+  if constexpr (VisitWords<MODE>::N == 8) {
+    const bool stp = vw.w[2] == 1;
+    const int sgM = vw.w[3], sgm = vw.w[4], dM = max(vw.w[5], 1);
+    const int dm = vw.w[6], deg = vw.w[7];
+    const unsigned ca = (unsigned)sgM * (unsigned)dm;
+    const unsigned cb = (0u - (unsigned)sgm) * (unsigned)dM;
+    const unsigned dr = stp ? l : s, other = stp ? s : l;
+    const int d_end = deg - (stp ? lt : rt);
+    if (ca * dr + cb * other + (unsigned)C < (unsigned)dM &&
+        dr - d_lo <= span)
+      acc = __fadd_rn(acc, (int)dr == d_end ? val : -val);
+  } else {
+    const unsigned v = (unsigned)(3 * s + 5 * l) + (unsigned)C;
+    if (v < 60000u && (unsigned)s - d_lo <= span)
+      acc = __fadd_rn(acc, s == (C & 63) ? val : -val);
   }
+  return acc;
 }
 
 // P9: reps x n_pairs iterations of the mode's body on the carried grid
-// (W, H), in place; words (rows, cols) int32.
-template <int MODE>
-__global__ void __launch_bounds__(TILE_THREADS)
+// (W, H), in place; words (rows, cols) int32. Block b owns rows [s_lo,
+// s_lo + VO_ROWS) of tile position b / VO_OWNERS (row-major over the
+// ceil(W / 64) x ceil(H / 128) tile positions). BINNED: the fill takes the
+// tile's binned visit list (entries[bounds[t], bounds[t + 1])) in place of
+// every visit of the repetition.
+template <int MODE, bool BINNED>
+__global__ void __launch_bounds__(VO_THREADS, 2)
 vpu_loop_kernel(const int32_t* __restrict__ words, int cols, int n_pairs,
-                int reps, float val, float* __restrict__ g, int W, int H) {
-  __shared__ int stage[4][V_STAGE];  // fullv only (32 KB)
-  const int s0 = threadIdx.x / TL, l = threadIdx.x % TL;
+                int reps, float val, float* __restrict__ g, int W, int H,
+                const int* __restrict__ bounds,
+                const int* __restrict__ entries) {
+  __shared__ int2 list[VO_CAP];  // visit v, or (C, w2) in fullv
+  __shared__ int warp_sums[32];
+  const int t = blockIdx.x / VO_OWNERS, TY = (H + TL - 1) / TL;
+  const int s_lo = blockIdx.x % VO_OWNERS * VO_ROWS;
+  const int tx = t / TY, ty = t % TY, rt = tx * VS, lt = ty * TL;
+  if (rt + s_lo >= W) return;  // block-uniform: no row in the grid
+  const int s = s_lo + threadIdx.x / TL, l = threadIdx.x % TL;
+  const bool mine = rt + s < W && lt + l < H;
+  float* cell = g + (size_t)(rt + s) * H + lt + l;
+  float acc = mine ? *cell : 0.f;
   const int ray_w = min(n_pairs, RAY_W_MAX);
-  for (int rep = 0; rep < reps; ++rep) {
-    if constexpr (MODE == FULLV) {
-      for (int base = 0; base < n_pairs; base += V_STAGE) {
-        const int m = min(V_STAGE, n_pairs - base);
-        __syncthreads();  // the previous round is consumed
-        for (int e = threadIdx.x; e < 4 * m; e += TILE_THREADS)
-          stage[e / m][e % m] = words[(size_t)(e / m) * cols + base + e % m];
-        __syncthreads();
-        for (int i = 0; i < m; ++i) {
-          emit_pair(g, W, H, s0, l, stage[0][i], stage[1][i], val);
-          emit_pair(g, W, H, s0, l, stage[2][i], stage[3][i], val);
-        }
+  const int base = BINNED ? bounds[t] : 0;
+  const int n_src = BINNED ? bounds[t + 1] - base
+                           : MODE == RAY1 ? n_pairs : 2 * n_pairs;
+  for (int rep = 0, start = 0; rep < reps;) {
+    // fill: the hits of sources [start, v0), in order, up to VO_CAP
+    int n = 0, v0 = start;
+    for (; v0 < n_src; v0 += VO_THREADS) {
+      const int src = v0 + threadIdx.x;
+      int hit = 0;
+      int2 e = make_int2(0, 0);
+      if (src < n_src) {
+        const int v = BINNED ? entries[base + src] : src;
+        int j, C, w2;
+        vpu_visit<MODE>(words, cols, ray_w, v, j, C, w2);
+        hit = vpu_hits<MODE>(words, cols, j, w2, tx, ty, s_lo);
+        e = MODE == FULLV ? make_int2(C, w2) : make_int2(v, 0);
       }
-    } else {
-      for (int i = 0; i < n_pairs; ++i) {
-        if constexpr (MODE == RMW) {
-          // two alternating-tile RMWs at lanes [0, 128), no mask
-          const int rt = (i & 7) * VS, rt2 = ((i + 3) & 7) * VS;
-#pragma unroll
-          for (int k = 0; k < V_PER_THREAD; ++k)
-            add_cell(g, W, H, rt + s0 + k * TS, l, 1.f);
-#pragma unroll
-          for (int k = 0; k < V_PER_THREAD; ++k)
-            add_cell(g, W, H, rt2 + s0 + k * TS, l, 1.f);
-        } else if constexpr (MODE == VEC) {
-          const int t1 = (i & 3) | (((i >> 2) & 7) << 4);
-          const int t2 = ((i + 1) & 3) | ((((i >> 2) + 3) & 7) << 4);
-          emit_pair(g, W, H, s0, l, i & 1023, 37 | (5 << 7) | (t1 << 15), val);
-          emit_pair(g, W, H, s0, l, (i + 7) & 1023, 51 | (9 << 7) | (t2 << 15),
-                    val);
-        } else if constexpr (MODE == FULL) {
-          emit_pair(g, W, H, s0, l, words[i], words[cols + i], val);
-          emit_pair(g, W, H, s0, l, words[2 * cols + i], words[3 * cols + i],
-                    val);
-        } else {  // RAY1, RAY2
-          const int j = i & (ray_w - 1);
-          const RayCells r = ray_prologue(words, cols, j, s0, l);
-          emit_ray(g, W, H, s0, l, r, words[j], words[cols + j], val);
-          if constexpr (MODE == RAY2)
-            emit_ray(g, W, H, s0, l, r, words[2 * cols + j],
-                     words[3 * cols + j], val);
-        }
-      }
+      int total;
+      const int at = block_exclusive_scan<VO_THREADS>(hit, warp_sums, total);
+      if (n + total > VO_CAP) break;  // block-uniform: the next fill's
+      if (hit) list[n + at] = e;
+      n += total;
     }
+    __syncthreads();  // the list is written
+    // the whole repetition's list: walk it for every repetition left
+    const bool whole = start == 0 && v0 >= n_src;
+    for (int r = whole ? reps : 1; r > 0; --r)
+      for (int k = 0; k < n; ++k)
+        acc = vpu_add<MODE>(acc, vpu_words<MODE>(words, cols, ray_w, list[k]),
+                            s, l, rt, lt, val);
+    if (whole) break;
+    __syncthreads();  // the list is walked before the next fill
+    if (v0 >= n_src) {
+      ++rep;
+      start = 0;
+    } else {
+      start = v0;
+    }
+  }
+  if (mine) *cell = acc;
+}
+
+// -- P9 variant (b), measured against the in-block filter: bin first ------
+//
+// The visits of a repetition are binned into ordered per-tile lists (as
+// P7 bins its updates: counts and ranks per chunk of VB_CHUNK visits, a
+// scan over the chunks, a fill), and each owner's fill reads its tile's
+// list only.
+constexpr int VB_IPT = 8, VB_CHUNK = VO_THREADS * VB_IPT;
+
+template <int MODE>
+__device__ __forceinline__ int vpu_tile_key(const int32_t* __restrict__ w,
+                                            int cols, int ray_w, int v,
+                                            int n_visits, int TX, int TY) {
+  if (v >= n_visits) return -1;
+  int j, C, w2;
+  vpu_visit<MODE>(w, cols, ray_w, v, j, C, w2);
+  const int tile = w2 >> 15, tx = tile >> 4, ty = tile & 15;
+  return tx >= 0 && tx < TX && ty < TY ? tx * TY + ty : -1;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(VO_THREADS)
+vpu_bin_count_kernel(const int32_t* __restrict__ words, int cols,
+                     int n_pairs, int W, int H, int* __restrict__ table,
+                     uint16_t* __restrict__ ranks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int TX = (W + VS - 1) / VS, TY = (H + TL - 1) / TL;
+  const int n_visits = MODE == RAY1 ? n_pairs : 2 * n_pairs;
+  const int ray_w = min(n_pairs, RAY_W_MAX);
+  const int first = blockIdx.x * VB_CHUNK + (threadIdx.x >> 5) * 32 * VB_IPT +
+                    (threadIdx.x & 31);
+  int key[VB_IPT], rank[VB_IPT];
+#pragma unroll
+  for (int q = 0; q < VB_IPT; ++q)
+    key[q] = vpu_tile_key<MODE>(words, cols, ray_w, first + 32 * q,
+                                n_visits, TX, TY);
+  stable_rank<VO_THREADS, VB_IPT>(key, n_visits - blockIdx.x * VB_CHUNK,
+                                  TX * TY, reinterpret_cast<uint16_t*>(smem),
+                                  table + blockIdx.x, gridDim.x, rank);
+#pragma unroll
+  for (int q = 0; q < VB_IPT; ++q)
+    if (key[q] >= 0) ranks[first + 32 * q] = (uint16_t)rank[q];
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(VO_THREADS)
+vpu_bin_fill_kernel(const int32_t* __restrict__ words, int cols,
+                    int n_pairs, int W, int H, const int* __restrict__ table,
+                    const int* __restrict__ totals,
+                    const uint16_t* __restrict__ ranks,
+                    int* __restrict__ bounds, int* __restrict__ entries) {
+  extern __shared__ int tbase[];  // n_tiles
+  __shared__ int warp_sums[32];
+  const int TX = (W + VS - 1) / VS, TY = (H + TL - 1) / TL, nt = TX * TY;
+  const int n_visits = MODE == RAY1 ? n_pairs : 2 * n_pairs;
+  const int ray_w = min(n_pairs, RAY_W_MAX);
+  const int per = (nt + VO_THREADS - 1) / VO_THREADS, o0 = threadIdx.x * per;
+  int sum = 0;
+  for (int k = 0; k < per && o0 + k < nt; ++k) sum += totals[o0 + k];
+  int all;
+  int run = block_exclusive_scan<VO_THREADS>(sum, warp_sums, all);
+  for (int k = 0; k < per && o0 + k < nt; ++k) {
+    tbase[o0 + k] = run;
+    if (blockIdx.x == 0) bounds[o0 + k] = run;
+    run += totals[o0 + k];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) bounds[nt] = all;
+  __syncthreads();
+  const int first = blockIdx.x * VB_CHUNK + (threadIdx.x >> 5) * 32 * VB_IPT +
+                    (threadIdx.x & 31);
+#pragma unroll
+  for (int q = 0; q < VB_IPT; ++q) {
+    const int v = first + 32 * q;
+    const int key = vpu_tile_key<MODE>(words, cols, ray_w, v, n_visits, TX,
+                                       TY);
+    if (key >= 0)
+      entries[tbase[key] + table[(size_t)key * gridDim.x + blockIdx.x] +
+              ranks[v]] = v;
   }
 }
 
@@ -716,6 +886,19 @@ int current_device() {
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
     return -1;
   return dev;
+}
+
+// The current device's multiprocessor count (read once per device), or 0
+// when it cannot be read.
+int sm_count() {
+  static int sms[MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0) return 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    sms[dev] = 0;
+  return sms[dev];
 }
 
 // Lets P7's count and sort kernels take more than the default shared
@@ -817,13 +1000,22 @@ extern "C" int slam_probe_scalar_sum(const void* xs, int n, void* out,
   return last_error();
 }
 
-// P6: out (n,) float32 = val.
+// P6: out (n,) float32 = val, out 4-byte aligned: a float4 a thread, as
+// many 256-thread blocks as the body needs, at most sixteen an SM.
 extern "C" int slam_probe_fill(void* out, long long n, float val,
                                void* stream) {
   if (n <= 0) return 0;
-  const long long blocks = (n + 255) / 256;
-  fill_kernel<<<(int)(blocks < 1024 ? blocks : 1024), 256, 0,
-                (cudaStream_t)stream>>>((float*)out, (size_t)n, val);
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const size_t to_edge = ((16 - ((uintptr_t)out & 15)) & 15) / sizeof(float);
+  const size_t head = to_edge < (size_t)n ? to_edge : (size_t)n;
+  const size_t n4 = ((size_t)n - head) / 4;
+  const size_t want = (n4 + FILL_THREADS - 1) / FILL_THREADS;
+  const size_t cap = (size_t)sms * 16;
+  const size_t blocks = want < 1 ? 1 : want < cap ? want : cap;
+  fill_kernel<<<(int)blocks, FILL_THREADS, 0,
+                (cudaStream_t)stream>>>((float*)out, head, n4, (size_t)n,
+                                        val);
   return last_error();
 }
 
@@ -876,20 +1068,25 @@ extern "C" int slam_probe_segment_rmw(const void* x8, const void* yl,
 
 // P9: mode 0-5 (rmw, vec, full, fullv, ray1, ray2); words (rows, cols)
 // int32 with rows >= 4 (>= 10 for the ray modes); grid (W, H) float32,
-// updated in place. One block.
+// updated in place. A block of VO_THREADS for each VO_ROWS x 128 owner of
+// the ceil(W / 64) x ceil(H / 128) tile positions.
 extern "C" int slam_probe_vpu_loop(const void* words, int cols, int n_pairs,
                                    int mode, int reps, float val, void* grid,
                                    int W, int H, void* stream) {
-  if (n_pairs < 0 || reps < 0) return (int)cudaErrorInvalidValue;
-  if (n_pairs == 0 || reps == 0) return 0;
+  if (n_pairs < 0 || reps < 0 || n_pairs > (1 << 29) || W < 0 || H < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_pairs == 0 || reps == 0 || W == 0 || H == 0) return 0;
+  const long long blocks = (long long)((W + VS - 1) / VS) *
+                           ((H + TL - 1) / TL) * VO_OWNERS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int32_t* w = (const int32_t*)words;
   float* g = (float*)grid;
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
-#define PROBE_VPU_CASE(M)                                                  \
-  case M:                                                                  \
-    vpu_loop_kernel<M><<<1, TILE_THREADS, 0, st>>>(w, cols, n_pairs, reps, \
-                                                   val, g, W, H);          \
+#define PROBE_VPU_CASE(M)                                                   \
+  case M:                                                                   \
+    vpu_loop_kernel<M, false><<<(int)blocks, VO_THREADS, 0, st>>>(          \
+        w, cols, n_pairs, reps, val, g, W, H, nullptr, nullptr);            \
     break;
     PROBE_VPU_CASE(RMW)
     PROBE_VPU_CASE(VEC)
@@ -898,6 +1095,80 @@ extern "C" int slam_probe_vpu_loop(const void* words, int cols, int n_pairs,
     PROBE_VPU_CASE(RAY1)
     PROBE_VPU_CASE(RAY2)
 #undef PROBE_VPU_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return last_error();
+}
+
+// P9 variant (b): the scratch bytes slam_probe_vpu_loop_binned needs.
+struct VpuBinPlan {
+  int n_visits, n_chunks, n_tiles;
+  size_t table, totals, bounds, ranks, bytes;
+  VpuBinPlan(int n_pairs, int mode, int W, int H) {
+    n_visits = mode == RAY1 ? n_pairs : 2 * n_pairs;
+    n_chunks = (n_visits + VB_CHUNK - 1) / VB_CHUNK;
+    n_tiles = ((W + VS - 1) / VS) * ((H + TL - 1) / TL);
+    table = 4 * (size_t)n_visits;  // the entries (int) first
+    totals = table + 4 * (size_t)n_chunks * n_tiles;
+    bounds = totals + 4 * (size_t)n_tiles;
+    ranks = bounds + 4 * ((size_t)n_tiles + 1);
+    bytes = ranks + 2 * (size_t)n_chunks * VB_CHUNK;
+  }
+};
+
+extern "C" long long slam_probe_vpu_loop_binned_scratch(int n_pairs, int mode,
+                                                        int W, int H) {
+  return (long long)VpuBinPlan(n_pairs, mode, W, H).bytes;
+}
+
+// P9 variant (b): as slam_probe_vpu_loop, after binning the visits into
+// ordered per-tile lists in scratch (count, scan, fill, then the walk).
+extern "C" int slam_probe_vpu_loop_binned(const void* words, int cols,
+                                          int n_pairs, int mode, int reps,
+                                          float val, void* grid, int W,
+                                          int H, void* scratch,
+                                          long long scratch_bytes,
+                                          void* stream) {
+  if (n_pairs < 0 || reps < 0 || n_pairs > (1 << 29) || W < 0 || H < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_pairs == 0 || reps == 0 || W == 0 || H == 0) return 0;
+  const VpuBinPlan plan(n_pairs, mode, W, H);
+  const size_t hist = 2 * (size_t)(VO_THREADS / 32) *
+                      hist_stride(plan.n_tiles);
+  if ((long long)plan.bytes > scratch_bytes || hist > DEFAULT_SHARED ||
+      4 * (size_t)plan.n_tiles > DEFAULT_SHARED)
+    return (int)cudaErrorInvalidValue;
+  unsigned char* sc = (unsigned char*)scratch;
+  int* entries = (int*)sc;
+  int* table = (int*)(sc + plan.table);
+  int* totals = (int*)(sc + plan.totals);
+  int* bounds = (int*)(sc + plan.bounds);
+  uint16_t* ranks = (uint16_t*)(sc + plan.ranks);
+  const int32_t* w = (const int32_t*)words;
+  float* g = (float*)grid;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = plan.n_tiles * VO_OWNERS;
+  switch (mode) {
+#define PROBE_VPU_BIN_CASE(M)                                                \
+  case M:                                                                    \
+    vpu_bin_count_kernel<M><<<plan.n_chunks, VO_THREADS, hist, st>>>(        \
+        w, cols, n_pairs, W, H, table, ranks);                               \
+    tile_rmw_scan_kernel<<<(plan.n_tiles + 7) / 8, 256, 0, st>>>(            \
+        table, plan.n_chunks, plan.n_tiles, totals);                         \
+    vpu_bin_fill_kernel<M><<<plan.n_chunks, VO_THREADS,                      \
+                             4 * (size_t)plan.n_tiles, st>>>(                \
+        w, cols, n_pairs, W, H, table, totals, ranks, bounds, entries);      \
+    vpu_loop_kernel<M, true><<<blocks, VO_THREADS, 0, st>>>(                 \
+        w, cols, n_pairs, reps, val, g, W, H, bounds, entries);              \
+    break;
+    PROBE_VPU_BIN_CASE(RMW)
+    PROBE_VPU_BIN_CASE(VEC)
+    PROBE_VPU_BIN_CASE(FULL)
+    PROBE_VPU_BIN_CASE(FULLV)
+    PROBE_VPU_BIN_CASE(RAY1)
+    PROBE_VPU_BIN_CASE(RAY2)
+#undef PROBE_VPU_BIN_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -51,15 +51,19 @@ def _check_pairs(xs: torch.Tensor, ys: torch.Tensor) -> None:
 
 
 def _launch(wrapper, entry: str, device: torch.device, *args) -> None:
-    """Call the C entry point on the current stream of `device`; count the
-    launch on `wrapper` and raise if it was refused. Switches the current
-    device only when `device` is not it (the switch costs host time)."""
+    """Call the C entry point on the current stream of `device` (an index-
+    less device is the current one); count the launch on `wrapper` and
+    raise if it was refused. The stream is fetched raw, with no
+    torch.cuda.Stream object, and the current device is switched only when
+    `device` is another one (both cost host time on every call)."""
     fn = getattr(build.library(), entry)
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     wrapper.launches += 1
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
@@ -253,12 +257,14 @@ def full_grid_plain(device) -> torch.Tensor:
 
 
 def full_grid(device) -> torch.Tensor:
-    """P6: a (1208, 1216) float32 grid of ones on `device`."""
+    """P6: a (1208, 1216) float32 grid of ones on `device` (on the card:
+    16-byte stores, launched on out.device, which names the index that
+    an index-less "cuda" leaves to the current device)."""
     device = torch.device(device)
     if device.type != "cuda":
         return full_grid_plain(device)
     out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=device)
-    _launch(full_grid, "slam_probe_fill", device, out.data_ptr(),
+    _launch(full_grid, "slam_probe_fill", out.device, out.data_ptr(),
             out.numel(), 1.0)
     return out
 
@@ -543,6 +549,132 @@ def vpu_loop_plain(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
     return grid
 
 
+# P9's kernel: a block owns VPU_OWNER_ROWS x 128 cells of one (64, 128)
+# tile position, a cell a thread, keeps them in registers and walks the
+# visits that can write them (its list) in order; vpu_owner_lists and
+# vpu_loop_design are that design in PyTorch, for the CPU tests.
+
+VPU_OWNER_ROWS = 8  # rows of a P9 owner (the kernel's VO_ROWS)
+_U32 = 0xFFFFFFFF
+
+
+def vpu_visit_words(words: torch.Tensor, n_pairs: int, mode: str):
+    """(j, C, w2) of every visit of one repetition of the P9 loop, in
+    order, as int64 tensors: the word column (i & (ray_w - 1) in the ray
+    modes) and the visit's two words, made from the loop index in rmw
+    (the tile row in w2's tile field) and vec (the kernel's vpu_visit)."""
+    v = torch.arange(n_pairs * (1 if mode == "ray1" else 2),
+                     device=words.device)
+    i, h = (v, v * 0) if mode == "ray1" else (v >> 1, v & 1)
+    j = i & (min(n_pairs, RAY_W_MAX) - 1) if mode in ("ray1", "ray2") else i
+    if mode == "rmw":
+        return j, v * 0, ((i + 3 * h) & 7) << 19
+    if mode == "vec":
+        t = torch.where(h == 1, ((i + 1) & 3) | ((((i >> 2) + 3) & 7) << 4),
+                        (i & 3) | (((i >> 2) & 7) << 4))
+        return j, (i + 7 * h) & 1023, torch.where(
+            h == 1, 51 | (9 << 7), 37 | (5 << 7)) | (t << 15)
+    w = words.long()
+    return j, w[2 * h, j], w[2 * h + 1, j]
+
+
+def vpu_owner_lists(words: torch.Tensor, n_pairs: int, mode: str,
+                    shape) -> dict:
+    """{(tx, ty, k): visit indices} of P9's owners on a grid of `shape`:
+    owner k of tile position (tx, ty) holds rows [64 tx + 8 k, + 8) x lanes
+    [128 ty, + 128), and exists where its first row lies in the grid. Its
+    list is the visits of one repetition, in order, that its kernel's
+    filter keeps: those on its tile whose mask band [d_lo, d_lo + span]
+    meets its rows (any band in rmw, and a steep ray's, which lies on the
+    lanes)."""
+    W, H = shape
+    j, _, w2 = vpu_visit_words(words, n_pairs, mode)
+    tile = w2 >> 15
+    span, d_lo = w2 & 127, (w2 >> 7) & 255
+    free = torch.full_like(tile, mode == "rmw", dtype=torch.bool)
+    if mode in ("ray1", "ray2"):
+        free = free | (words.long()[4, j] == 1)
+    lists = {}
+    for tx in range(-(-W // VPU_TS)):
+        for ty in range(-(-H // LANES)):
+            on = ((tile >> 4) == tx) & ((tile & 15) == ty)
+            for k in range(VPU_TS // VPU_OWNER_ROWS):
+                s_lo = k * VPU_OWNER_ROWS
+                if tx * VPU_TS + s_lo >= W:
+                    break
+                band = (d_lo < s_lo + VPU_OWNER_ROWS) & (d_lo + span >= s_lo)
+                lists[tx, ty, k] = (on & (free | band)).nonzero().squeeze(1)
+    return lists
+
+
+def _vpu_owner_adds(words, mode, j, C, w2, rt, lt, s, l):
+    """(mask, value) of visits (j, C, w2) on the cells (s, l) of their
+    owners' tiles at (rt, lt), broadcast to (n, rows, lanes): the kernel's
+    vpu_add, unsigned arithmetic as int64 modulo 2**32."""
+    j, C, w2, rt, lt = (t[:, None, None] for t in (j, C, w2, rt, lt))
+    if mode == "rmw":
+        on = torch.ones((len(C), s.shape[1], l.shape[2]), dtype=torch.bool,
+                        device=C.device)
+        return on, torch.ones((), dtype=torch.float32)
+    span, d_lo = w2 & 127, (w2 >> 7) & 255
+    if mode in ("ray1", "ray2"):
+        w = words.long()
+        stp = w[4, j] == 1
+        dM = w[7, j].clamp(min=1)
+        ca = (w[5, j] * w[8, j]) & _U32
+        cb = ((-w[6, j]) & _U32) * dM & _U32
+        dr, other = torch.where(stp, l, s), torch.where(stp, s, l)
+        on = (((ca * dr + cb * other + C) & _U32) < dM) & (
+            ((dr - d_lo) & _U32) <= span)
+        end = dr == w[9, j] - torch.where(stp, lt, rt)
+    else:
+        on = (((3 * s + 5 * l + C) & _U32) < 60000) & (
+            ((s - d_lo) & _U32) <= span)
+        end = s == (C & 63)
+    val = torch.tensor(LOG4, dtype=torch.float32)
+    return on, torch.where(end, val, -val)
+
+
+def vpu_loop_design(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
+                    mode: str, reps: int) -> torch.Tensor:
+    """P9 by its kernel's design, in place: each owner (vpu_owner_lists)
+    takes its cells once, adds to them, visit by visit of its list and
+    repetition by repetition, +-1.386 (+1.0 in rmw) where the visit's mask
+    lets a cell through, and writes them once. The owners are independent;
+    here they step together, one list entry at a time. (The kernel holds
+    up to 4,096 entries of a list in shared memory and walks a longer one a
+    part at a time; the order of the adds is the same.)"""
+    W, H = grid.shape
+    lists = vpu_owner_lists(words, n_pairs, mode, grid.shape)
+    if not lists or reps == 0:
+        return grid
+    dev = grid.device
+    tx, ty, k = (torch.tensor(c, device=dev) for c in zip(*lists))
+    rt, lt = tx * VPU_TS, ty * LANES
+    s = (k * VPU_OWNER_ROWS)[:, None, None] + torch.arange(
+        VPU_OWNER_ROWS, device=dev)[None, :, None]
+    l = torch.arange(LANES, device=dev)[None, None, :]
+    x, y = rt[:, None, None] + s, lt[:, None, None] + l
+    mine = (x < W) & (y < H)
+    flat = (x * H + y)[mine]
+    cells = torch.zeros(mine.shape, dtype=torch.float32, device=dev)
+    cells[mine] = grid.view(-1)[flat]
+    per = [len(v) for v in lists.values()]
+    ids = torch.full((len(per), max(per)), -1, dtype=torch.long, device=dev)
+    for o, v in enumerate(lists.values()):
+        ids[o, :len(v)] = v
+    j, C, w2 = vpu_visit_words(words, n_pairs, mode)
+    for _ in range(reps):
+        for p in range(ids.shape[1]):
+            a = (ids[:, p] >= 0).nonzero().squeeze(1)
+            vis = ids[a, p]
+            on, add = _vpu_owner_adds(words, mode, j[vis], C[vis], w2[vis],
+                                      rt[a], lt[a], s[a], l)
+            cells[a] = torch.where(on, cells[a] + add, cells[a])
+    grid.view(-1)[flat] = cells[mine]
+    return grid
+
+
 def _vpu_check(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
                mode: str, reps: int) -> None:
     if mode not in VPU_MODES:
@@ -561,7 +693,9 @@ def vpu_loop(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
     """P9: reps x n_pairs iterations of the mode's body (vpu_probe.py
     make_kernel) on the carried grid, IN PLACE; returns grid. words (rows,
     cols) int32: 4 rows (C, w2 of two visits) for the pair modes, 10 (plus
-    six aux words) for the ray modes; grid (W, H) float32."""
+    six aux words) for the ray modes; grid (W, H) float32. On the card: one
+    kernel, a block for each 8 x 128 owner of a (64, 128) tile position,
+    its cells in registers (vpu_loop_design; csrc/probes.cu)."""
     _vpu_check(words, grid, n_pairs, mode, reps)
     if not grid.is_cuda:
         return vpu_loop_plain(words, grid, n_pairs, mode, reps)

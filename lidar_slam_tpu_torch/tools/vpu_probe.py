@@ -1,4 +1,4 @@
-"""The per-visit and per-ray cost floor of a tile-RMW walk on one SM (P9).
+"""The per-visit and per-ray cost of a tile-RMW walk on the card (P9).
 
 Replaces tools/vpu_probe.py (make_kernel :76 via build_call :207), which
 timed stripped Pallas loops replicating the v8 walk kernel's per-visit
@@ -12,18 +12,23 @@ work (ops/raywalk.py _make_kernel_v8 emit()) to decompose its cost:
   ray1    v8's per-ray prologue (six aux words, DR and V0) + one visit
   ray2    the same prologue + two visits
 
-Each mode runs in one thread block, so on one SM: the K2 map kernel
-(raywalk_scan) walks the robot's 32 x 32 sub-tile, which nearly every ray
-crosses, with one warp, and that warp bounds it. Each mode is timed at 8
-and 40 repetitions of m1 pairs; the
-slope between them is the marginal cost (launch overhead cancels): ns per
-visit for the pair modes, ns per ray for the ray modes. per-ray setup =
-2 slope(ray1) - slope(ray2). The kernel tests every cell of a visit's
-(64, 128) tile and writes only those its mask lets through, so a visit's
-cost depends on the cells it writes, which differ between the modes
-(printed as cells/visit): the slopes of two modes are not a decomposition
-of one another. On the card the grid (512 x 512, 1 MB) stays in global
-memory, resident in L2: a block's shared memory (227 KB) cannot hold it.
+The TPU tool's grid=(1,) kernel was the whole v5e chip; on the card the
+kernel spreads the grid's cells over all of it, a block for each 8 x 128
+owner of a (64, 128) tile position, each cell in a register of its
+thread, each block walking the visits of its tile in order (csrc/probes.cu
+"P9"). So the slopes below are the whole card's: what a visit costs when
+every tile's visits run at once, not the serial cost on one multiprocessor
+that the K2 map kernel's one warp pays (PR 3's one-block kernel measured
+545.0 ns a visit on one SM; PERF.md). Each mode is timed at 8 and 40
+repetitions of m1 pairs; the slope between them is the marginal cost
+(launch overhead and the one-time filter of the visits cancel): ns per
+visit for the pair modes, ns per ray for the ray modes. per-ray setup = 2
+slope(ray1) - slope(ray2). A block tests every cell of its part of a
+visit's tile, after skipping the visits whose mask band misses its rows,
+so a visit's cost depends on the cells and rows it writes, which differ
+between the modes (printed as cells/visit): the slopes of two modes are
+not a decomposition of one another. The grid (512 x 512, 1 MB) is read
+and written once a call.
 
     python -m lidar_slam_tpu_torch.tools.vpu_probe [--m1 16384] [--reps 5]
         [--modes rmw,vec,full,fullv,ray1,ray2]
@@ -51,10 +56,14 @@ N_RAYS_DS = 4956 * 1081  # dataset-20 scans x rays
 CELLS_PAIRS = 2048  # pairs whose visits' cells are counted
 
 
-def words_for(n_pairs: int, seed: int, rays: bool = False) -> np.ndarray:
+def words_for(n_pairs: int, seed: int, rays: bool = False,
+              tiles=((0, GRID // TS), (0, GRID // LANES))) -> np.ndarray:
     """The JAX tool's word table: (4, n_pairs) int32 of two (C, w2) visits
-    per pair, or (10, min(n_pairs, 4096)) with six per-ray aux words."""
-    n_row_t, n_lane_t = GRID // TS, GRID // LANES
+    per pair, or (10, min(n_pairs, 4096)) with six per-ray aux words. The
+    visits' tile rows and lane tiles are drawn from the ranges `tiles`
+    ((lo, hi) each, lane tiles below 16); the default is the tool's 512 x
+    512 grid."""
+    (r_lo, r_hi), (c_lo, c_hi) = tiles
     r = np.random.default_rng(seed)
     if rays:
         n_pairs = min(n_pairs, probes.RAY_W_MAX)
@@ -62,8 +71,8 @@ def words_for(n_pairs: int, seed: int, rays: bool = False) -> np.ndarray:
     w[0] = r.integers(0, 1024, n_pairs)
     w[2] = r.integers(0, 1024, n_pairs)
     for row in (1, 3):
-        tile = (r.integers(0, n_lane_t, n_pairs)
-                | (r.integers(0, n_row_t, n_pairs) << 4))
+        tile = (r.integers(c_lo, c_hi, n_pairs)
+                | (r.integers(r_lo, r_hi, n_pairs) << 4))
         w[row] = (r.integers(0, 64, n_pairs)
                   | (r.integers(0, 64, n_pairs) << 7) | (tile << 15))
     if rays:
@@ -126,20 +135,20 @@ def run(m1: int = M1, reps: int = 5, modes=probes.VPU_MODES,
         cells[mode] = cells_per_visit(torch.as_tensor(words_for(
             m1, 10, rays=mode in ("ray1", "ray2"))), m1, mode)
         log(f"{mode:7s}  {t1 * 1e3:8.2f}ms  {t2 * 1e3:8.2f}ms  "
-            f"{slopes[mode]:6.1f}  {cells[mode]:8.1f}")
+            f"{slopes[mode]:6.2f}  {cells[mode]:8.1f}")
     res = {"times": times, "slopes": slopes, "cells": cells}
     # A visit's cost depends on the cells it writes, which differ between
     # the modes: the TPU tool's differences of modes (vec - rmw, full -
     # vec) are not a decomposition here and are not printed.
     if "full" in slopes:
-        log(f"tile-RMW visit (full): {slopes['full']:.1f} ns/visit on one "
-            f"SM at {cells['full']:.1f} cells/visit")
+        log(f"tile-RMW visit (full): {slopes['full']:.2f} ns/visit on the "
+            f"whole card at {cells['full']:.1f} cells/visit")
     if {"ray1", "ray2"} <= slopes.keys():
         res["setup_ns"] = 2 * slopes["ray1"] - slopes["ray2"]
         res["visit_in_situ_ns"] = slopes["ray2"] - slopes["ray1"]
-        log(f"per-ray setup (2*ray1 - ray2): {res['setup_ns']:.1f} ns/ray")
+        log(f"per-ray setup (2*ray1 - ray2): {res['setup_ns']:.2f} ns/ray")
         log(f"in-situ visit cost (ray2 - ray1): "
-            f"{res['visit_in_situ_ns']:.1f} ns/visit")
+            f"{res['visit_in_situ_ns']:.2f} ns/visit")
         log(f"dataset-20 per-ray setup total ({N_RAYS_DS / 1e6:.2f}M rays): "
             f"{res['setup_ns'] * N_RAYS_DS / 1e9:.3f} s")
     return res

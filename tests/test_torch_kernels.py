@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from lidar_slam_tpu_torch.config import MapConfig
-from lidar_slam_tpu_torch.kernels import probes
+from lidar_slam_tpu_torch.kernels import build, probes
 from lidar_slam_tpu_torch.kernels.nn import nn_argmin, nn_argmin_rounded
 from lidar_slam_tpu_torch.kernels import raywalk as rw
 from lidar_slam_tpu_torch.kernels.raywalk import (OWNER_SIDE, raywalk_bins,
@@ -652,6 +652,79 @@ def test_vpu_loop_bit_exact(dev, mode, n_pairs, reps):
     assert probes.vpu_loop.launches == before + 1 and out is g
     _same_bits(g, want)
     assert int((want != grid).sum()) > 100
+
+
+# P9 beyond the tool's grid: (words' tile rows and lane tiles, grid shape)
+VPU_600x700 = ((0, 12), (0, 8)), (600, 700)  # tile positions partly and
+# wholly outside the grid
+VPU_HOT = ((3, 4), (2, 3)), (vpu_probe.GRID, vpu_probe.GRID)  # one tile
+
+
+@pytest.mark.parametrize("mode,n_pairs,reps,where", [
+    *((m, 1000, 2, VPU_600x700) for m in probes.VPU_MODES),
+    ("ray1", 3000, 2, VPU_600x700),  # no power of two: j = i & 2999
+    # every visit on one tile: its lists exceed the 4,096 entries a block
+    # holds, so they are filtered and walked in parts every repetition
+    ("full", 5000, 2, VPU_HOT), ("fullv", 5000, 2, VPU_HOT),
+    ("ray2", 4100, 2, VPU_HOT),
+    # 40,000 visits a repetition: the filter takes 40 chunks
+    ("full", 20000, 1, None), ("fullv", 20000, 1, None),
+    ("full", 0, 2, None), ("ray2", 64, 0, None),  # nothing to do
+])
+def test_vpu_loop_edge_cases(dev, mode, n_pairs, reps, where):
+    """P9 in place, bit-exact, where owners and lists are at their edges."""
+    tiles, shape = where or (((0, 8), (0, 4)), (vpu_probe.GRID,) * 2)
+    words = torch.from_numpy(vpu_probe.words_for(
+        max(n_pairs, 1), 7, rays=mode in ("ray1", "ray2"), tiles=tiles))
+    grid = torch.as_tensor(np.random.default_rng(8).normal(0, 1, shape),
+                           dtype=torch.float32)
+    want = probes.vpu_loop(words, grid.clone(), n_pairs, mode, reps)
+    g = grid.to(dev)
+    before = probes.vpu_loop.launches
+    probes.vpu_loop(words.to(dev), g, n_pairs, mode, reps)
+    torch.cuda.synchronize()
+    assert probes.vpu_loop.launches == before + 1
+    _same_bits(g, want)
+    assert int((want != grid).sum()) > (100 if n_pairs and reps else -1)
+
+
+@pytest.mark.parametrize("device", [torch.device("cuda"), "cuda:0",
+                                    torch.device("cuda", 0)])
+def test_full_grid_switches_no_device(dev, device, monkeypatch):
+    """P6 on the current device, however it is named, launches once and
+    enters no torch.cuda.device context."""
+    entered = []
+
+    class Recording(torch.cuda.device):
+        def __init__(self, device):
+            entered.append(device)
+            super().__init__(device)
+
+    torch.cuda.set_device(0)
+    monkeypatch.setattr(torch.cuda, "device", Recording)
+    before = probes.full_grid.launches
+    got = probes.full_grid(device)
+    assert not entered  # (torch.cuda.synchronize enters one itself)
+    torch.cuda.synchronize()
+    assert probes.full_grid.launches == before + 1
+    _same_bits(got, probes.full_grid("cpu"))
+
+
+@pytest.mark.parametrize("offset,n", [(0, 1_000_003), (1, 1_000_001),
+                                      (3, 2), (2, 0), (1, 7)])
+def test_fill_entry_any_length_and_alignment(dev, offset, n):
+    """P6's C entry point writes exactly out[0, n) for any n and any
+    4-byte aligned out: a scalar head up to the first 16-byte boundary,
+    float4s, a scalar tail."""
+    buf = torch.full((n + 8,), -7.0, device=dev)
+    rc = build.library().slam_probe_fill(
+        buf.data_ptr() + 4 * offset, n, 2.5,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = torch.full((n + 8,), -7.0)
+    want[offset:offset + n] = 2.5
+    _same_bits(buf, want)
 
 
 def test_probe_wrappers_reject_bad_inputs(dev):
