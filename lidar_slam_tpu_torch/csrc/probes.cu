@@ -582,8 +582,12 @@ segment_rmw_kernel(const int32_t* __restrict__ x8s,
 // same in every repetition, so a list of at most VO_CAP entries is filtered
 // once and walked reps times; a longer one is filtered and walked a part
 // at a time, every repetition. The walk is the kernel's cost: every thread
-// of the block takes every entry, a few dozen instructions each, so the
-// card's issue rate bounds it, about 8,192 cell tests a visit.
+// of the block takes every entry, a few dozen instructions each (up to
+// 8,192 cell tests a visit over its owners). The issue rate bounds fullv;
+// full and the ray modes wait on their words' loads from device memory.
+// (A binning pass that builds ordered per-tile lists first, as P7 does,
+// measured within 3% of this at the tool's 16,384 pairs and 2.4 times
+// slower at 64 pairs, in four launches: PERF.md, PR 7.)
 //
 // Modes. rmw and vec compute their words from the loop index; full reads a
 // visit's two words from device memory at the walk (a broadcast load each);
@@ -699,15 +703,11 @@ __device__ __forceinline__ float vpu_add(float acc, const VisitWords<MODE>& vw,
 // P9: reps x n_pairs iterations of the mode's body on the carried grid
 // (W, H), in place; words (rows, cols) int32. Block b owns rows [s_lo,
 // s_lo + VO_ROWS) of tile position b / VO_OWNERS (row-major over the
-// ceil(W / 64) x ceil(H / 128) tile positions). BINNED: the fill takes the
-// tile's binned visit list (entries[bounds[t], bounds[t + 1])) in place of
-// every visit of the repetition.
-template <int MODE, bool BINNED>
+// ceil(W / 64) x ceil(H / 128) tile positions).
+template <int MODE>
 __global__ void __launch_bounds__(VO_THREADS, 2)
 vpu_loop_kernel(const int32_t* __restrict__ words, int cols, int n_pairs,
-                int reps, float val, float* __restrict__ g, int W, int H,
-                const int* __restrict__ bounds,
-                const int* __restrict__ entries) {
+                int reps, float val, float* __restrict__ g, int W, int H) {
   __shared__ int2 list[VO_CAP];  // visit v, or (C, w2) in fullv
   __shared__ int warp_sums[32];
   const int t = blockIdx.x / VO_OWNERS, TY = (H + TL - 1) / TL;
@@ -719,18 +719,15 @@ vpu_loop_kernel(const int32_t* __restrict__ words, int cols, int n_pairs,
   float* cell = g + (size_t)(rt + s) * H + lt + l;
   float acc = mine ? *cell : 0.f;
   const int ray_w = min(n_pairs, RAY_W_MAX);
-  const int base = BINNED ? bounds[t] : 0;
-  const int n_src = BINNED ? bounds[t + 1] - base
-                           : MODE == RAY1 ? n_pairs : 2 * n_pairs;
+  const int n_visits = MODE == RAY1 ? n_pairs : 2 * n_pairs;
   for (int rep = 0, start = 0; rep < reps;) {
-    // fill: the hits of sources [start, v0), in order, up to VO_CAP
+    // fill: the hits of visits [start, v0), in order, up to VO_CAP
     int n = 0, v0 = start;
-    for (; v0 < n_src; v0 += VO_THREADS) {
-      const int src = v0 + threadIdx.x;
+    for (; v0 < n_visits; v0 += VO_THREADS) {
+      const int v = v0 + threadIdx.x;
       int hit = 0;
       int2 e = make_int2(0, 0);
-      if (src < n_src) {
-        const int v = BINNED ? entries[base + src] : src;
+      if (v < n_visits) {
         int j, C, w2;
         vpu_visit<MODE>(words, cols, ray_w, v, j, C, w2);
         hit = vpu_hits<MODE>(words, cols, j, w2, tx, ty, s_lo);
@@ -744,14 +741,14 @@ vpu_loop_kernel(const int32_t* __restrict__ words, int cols, int n_pairs,
     }
     __syncthreads();  // the list is written
     // the whole repetition's list: walk it for every repetition left
-    const bool whole = start == 0 && v0 >= n_src;
+    const bool whole = start == 0 && v0 >= n_visits;
     for (int r = whole ? reps : 1; r > 0; --r)
       for (int k = 0; k < n; ++k)
         acc = vpu_add<MODE>(acc, vpu_words<MODE>(words, cols, ray_w, list[k]),
                             s, l, rt, lt, val);
     if (whole) break;
     __syncthreads();  // the list is walked before the next fill
-    if (v0 >= n_src) {
+    if (v0 >= n_visits) {
       ++rep;
       start = 0;
     } else {
@@ -759,86 +756,6 @@ vpu_loop_kernel(const int32_t* __restrict__ words, int cols, int n_pairs,
     }
   }
   if (mine) *cell = acc;
-}
-
-// -- P9 variant (b), measured against the in-block filter: bin first ------
-//
-// The visits of a repetition are binned into ordered per-tile lists (as
-// P7 bins its updates: counts and ranks per chunk of VB_CHUNK visits, a
-// scan over the chunks, a fill), and each owner's fill reads its tile's
-// list only.
-constexpr int VB_IPT = 8, VB_CHUNK = VO_THREADS * VB_IPT;
-
-template <int MODE>
-__device__ __forceinline__ int vpu_tile_key(const int32_t* __restrict__ w,
-                                            int cols, int ray_w, int v,
-                                            int n_visits, int TX, int TY) {
-  if (v >= n_visits) return -1;
-  int j, C, w2;
-  vpu_visit<MODE>(w, cols, ray_w, v, j, C, w2);
-  const int tile = w2 >> 15, tx = tile >> 4, ty = tile & 15;
-  return tx >= 0 && tx < TX && ty < TY ? tx * TY + ty : -1;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(VO_THREADS)
-vpu_bin_count_kernel(const int32_t* __restrict__ words, int cols,
-                     int n_pairs, int W, int H, int* __restrict__ table,
-                     uint16_t* __restrict__ ranks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int TX = (W + VS - 1) / VS, TY = (H + TL - 1) / TL;
-  const int n_visits = MODE == RAY1 ? n_pairs : 2 * n_pairs;
-  const int ray_w = min(n_pairs, RAY_W_MAX);
-  const int first = blockIdx.x * VB_CHUNK + (threadIdx.x >> 5) * 32 * VB_IPT +
-                    (threadIdx.x & 31);
-  int key[VB_IPT], rank[VB_IPT];
-#pragma unroll
-  for (int q = 0; q < VB_IPT; ++q)
-    key[q] = vpu_tile_key<MODE>(words, cols, ray_w, first + 32 * q,
-                                n_visits, TX, TY);
-  stable_rank<VO_THREADS, VB_IPT>(key, n_visits - blockIdx.x * VB_CHUNK,
-                                  TX * TY, reinterpret_cast<uint16_t*>(smem),
-                                  table + blockIdx.x, gridDim.x, rank);
-#pragma unroll
-  for (int q = 0; q < VB_IPT; ++q)
-    if (key[q] >= 0) ranks[first + 32 * q] = (uint16_t)rank[q];
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(VO_THREADS)
-vpu_bin_fill_kernel(const int32_t* __restrict__ words, int cols,
-                    int n_pairs, int W, int H, const int* __restrict__ table,
-                    const int* __restrict__ totals,
-                    const uint16_t* __restrict__ ranks,
-                    int* __restrict__ bounds, int* __restrict__ entries) {
-  extern __shared__ int tbase[];  // n_tiles
-  __shared__ int warp_sums[32];
-  const int TX = (W + VS - 1) / VS, TY = (H + TL - 1) / TL, nt = TX * TY;
-  const int n_visits = MODE == RAY1 ? n_pairs : 2 * n_pairs;
-  const int ray_w = min(n_pairs, RAY_W_MAX);
-  const int per = (nt + VO_THREADS - 1) / VO_THREADS, o0 = threadIdx.x * per;
-  int sum = 0;
-  for (int k = 0; k < per && o0 + k < nt; ++k) sum += totals[o0 + k];
-  int all;
-  int run = block_exclusive_scan<VO_THREADS>(sum, warp_sums, all);
-  for (int k = 0; k < per && o0 + k < nt; ++k) {
-    tbase[o0 + k] = run;
-    if (blockIdx.x == 0) bounds[o0 + k] = run;
-    run += totals[o0 + k];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) bounds[nt] = all;
-  __syncthreads();
-  const int first = blockIdx.x * VB_CHUNK + (threadIdx.x >> 5) * 32 * VB_IPT +
-                    (threadIdx.x & 31);
-#pragma unroll
-  for (int q = 0; q < VB_IPT; ++q) {
-    const int v = first + 32 * q;
-    const int key = vpu_tile_key<MODE>(words, cols, ray_w, v, n_visits, TX,
-                                       TY);
-    if (key >= 0)
-      entries[tbase[key] + table[(size_t)key * gridDim.x + blockIdx.x] +
-              ranks[v]] = v;
-  }
 }
 
 int last_error() { return (int)cudaGetLastError(); }
@@ -1085,8 +1002,8 @@ extern "C" int slam_probe_vpu_loop(const void* words, int cols, int n_pairs,
   switch (mode) {
 #define PROBE_VPU_CASE(M)                                                   \
   case M:                                                                   \
-    vpu_loop_kernel<M, false><<<(int)blocks, VO_THREADS, 0, st>>>(          \
-        w, cols, n_pairs, reps, val, g, W, H, nullptr, nullptr);            \
+    vpu_loop_kernel<M><<<(int)blocks, VO_THREADS, 0, st>>>(                 \
+        w, cols, n_pairs, reps, val, g, W, H);                              \
     break;
     PROBE_VPU_CASE(RMW)
     PROBE_VPU_CASE(VEC)
@@ -1095,80 +1012,6 @@ extern "C" int slam_probe_vpu_loop(const void* words, int cols, int n_pairs,
     PROBE_VPU_CASE(RAY1)
     PROBE_VPU_CASE(RAY2)
 #undef PROBE_VPU_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return last_error();
-}
-
-// P9 variant (b): the scratch bytes slam_probe_vpu_loop_binned needs.
-struct VpuBinPlan {
-  int n_visits, n_chunks, n_tiles;
-  size_t table, totals, bounds, ranks, bytes;
-  VpuBinPlan(int n_pairs, int mode, int W, int H) {
-    n_visits = mode == RAY1 ? n_pairs : 2 * n_pairs;
-    n_chunks = (n_visits + VB_CHUNK - 1) / VB_CHUNK;
-    n_tiles = ((W + VS - 1) / VS) * ((H + TL - 1) / TL);
-    table = 4 * (size_t)n_visits;  // the entries (int) first
-    totals = table + 4 * (size_t)n_chunks * n_tiles;
-    bounds = totals + 4 * (size_t)n_tiles;
-    ranks = bounds + 4 * ((size_t)n_tiles + 1);
-    bytes = ranks + 2 * (size_t)n_chunks * VB_CHUNK;
-  }
-};
-
-extern "C" long long slam_probe_vpu_loop_binned_scratch(int n_pairs, int mode,
-                                                        int W, int H) {
-  return (long long)VpuBinPlan(n_pairs, mode, W, H).bytes;
-}
-
-// P9 variant (b): as slam_probe_vpu_loop, after binning the visits into
-// ordered per-tile lists in scratch (count, scan, fill, then the walk).
-extern "C" int slam_probe_vpu_loop_binned(const void* words, int cols,
-                                          int n_pairs, int mode, int reps,
-                                          float val, void* grid, int W,
-                                          int H, void* scratch,
-                                          long long scratch_bytes,
-                                          void* stream) {
-  if (n_pairs < 0 || reps < 0 || n_pairs > (1 << 29) || W < 0 || H < 0)
-    return (int)cudaErrorInvalidValue;
-  if (n_pairs == 0 || reps == 0 || W == 0 || H == 0) return 0;
-  const VpuBinPlan plan(n_pairs, mode, W, H);
-  const size_t hist = 2 * (size_t)(VO_THREADS / 32) *
-                      hist_stride(plan.n_tiles);
-  if ((long long)plan.bytes > scratch_bytes || hist > DEFAULT_SHARED ||
-      4 * (size_t)plan.n_tiles > DEFAULT_SHARED)
-    return (int)cudaErrorInvalidValue;
-  unsigned char* sc = (unsigned char*)scratch;
-  int* entries = (int*)sc;
-  int* table = (int*)(sc + plan.table);
-  int* totals = (int*)(sc + plan.totals);
-  int* bounds = (int*)(sc + plan.bounds);
-  uint16_t* ranks = (uint16_t*)(sc + plan.ranks);
-  const int32_t* w = (const int32_t*)words;
-  float* g = (float*)grid;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = plan.n_tiles * VO_OWNERS;
-  switch (mode) {
-#define PROBE_VPU_BIN_CASE(M)                                                \
-  case M:                                                                    \
-    vpu_bin_count_kernel<M><<<plan.n_chunks, VO_THREADS, hist, st>>>(        \
-        w, cols, n_pairs, W, H, table, ranks);                               \
-    tile_rmw_scan_kernel<<<(plan.n_tiles + 7) / 8, 256, 0, st>>>(            \
-        table, plan.n_chunks, plan.n_tiles, totals);                         \
-    vpu_bin_fill_kernel<M><<<plan.n_chunks, VO_THREADS,                      \
-                             4 * (size_t)plan.n_tiles, st>>>(                \
-        w, cols, n_pairs, W, H, table, totals, ranks, bounds, entries);      \
-    vpu_loop_kernel<M, true><<<blocks, VO_THREADS, 0, st>>>(                 \
-        w, cols, n_pairs, reps, val, g, W, H, bounds, entries);              \
-    break;
-    PROBE_VPU_BIN_CASE(RMW)
-    PROBE_VPU_BIN_CASE(VEC)
-    PROBE_VPU_BIN_CASE(FULL)
-    PROBE_VPU_BIN_CASE(FULLV)
-    PROBE_VPU_BIN_CASE(RAY1)
-    PROBE_VPU_BIN_CASE(RAY2)
-#undef PROBE_VPU_BIN_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
