@@ -61,9 +61,10 @@ first failure and catches nothing):
      clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
      pairs; raywalk_build's binning and walk kernels over three main-path
      builds, and the walk's ns a crossing of the hottest owner; P1-P6 over
-     100 launches each on the JAX tool's inputs, and the host's side of one
-     P6 call beside one torch.ones call (torch.profiler's CPU events and
-     the host clock); P7's five kernels and P8's one over 20 calls at the
+     100 launches each on the JAX tool's inputs, and the host's side of a
+     P6 call (the host clock of the wrapper and of its torch.empty and its
+     C entry point alone, and torch.profiler's CPU events) beside
+     torch.ones; P7's five kernels and P8's one over 20 calls at the
      tools' sizes; P9's kernel, by name, at [10]'s timed case and at the
      tool's full mode (16,384 pairs x 8 repetitions); and 100 online steps
      of a fresh stream (after 20 unprofiled ones): device time and kernel
@@ -191,44 +192,36 @@ def pass_ms(fn, reps: int, names) -> dict:
     return out
 
 
-def named_ms(fn, reps: int, part: str) -> dict:
-    """{kernel name: device ms a call of fn} of the device kernels whose
-    name holds `part`, over reps calls (after one unprofiled call); {} if
-    three profiled runs show none."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        hits = {k: v[0] / reps / 1e3 for k, v in device_kernels(fn, reps)
-                .items() if part in k and v[0] > 0}
-        if hits:
-            return hits
-    return {}
-
-
-def host_side(fn, reps: int):
-    """(host us a call of fn, {CPU event: self CPU us a call}): the host
-    clock over reps calls that only enqueue (one sync after them), and
-    torch.profiler's CPU events (CUDA runtime calls included) over reps
-    more."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def host_us(fn, reps: int) -> float:
+    """Host microseconds a call of fn by the host clock, over reps calls
+    that only enqueue (one sync after them)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    host_us = (time.perf_counter() - t0) / reps * 1e6
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def cpu_events(fn, reps: int) -> dict:
+    """{CPU event: self CPU us a call} of reps calls of fn under
+    torch.profiler (CUDA runtime calls included; the profiler slows
+    them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = {ev.key: ev.self_cpu_time_total / reps
-              for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total}
-    return host_us, events
+    return {ev.key: ev.self_cpu_time_total / reps
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total}
 
 
 def nn_check(s, t, tm, reps: int):
@@ -891,8 +884,8 @@ def main() -> int:
                                          masks20[:64]), 50,
                        "nn_argmin_kernel")
 
-    def fmt(v):
-        return "not measured" if v is None else f"{v:.4f} ms"
+    def fmt(v, digits=4):
+        return "not measured" if v is None else f"{v:.{digits}f} ms"
 
     def main_build():
         raywalk_build(ends_main, masks21, cfg.map, K)
@@ -921,27 +914,41 @@ def main() -> int:
     for name, fn in pallas_probe.KERNELS.items():
         args = [torch.as_tensor(a, device=dev)
                 for a in pallas_probe.inputs(name)] or [dev]
-        ms_by = named_ms(lambda: fn(*args), 100, fn.__name__ if
-                         fn is not probes.full_grid else "fill_kernel")
+        kernel = ("fill_kernel" if fn is probes.full_grid
+                  else f"{fn.__name__}_kernel")
         row = rows_by_name[fn.__name__]
-        row["device_ms"] = sum(ms_by.values()) if ms_by else None
+        row["device_ms"] = device_ms(lambda: fn(*args), 100, kernel)
         print(f"[11] {fn.__name__} under torch.profiler, 100 launches: "
-              + (", ".join(f"{k} {v:.5f} ms" for k, v in ms_by.items())
-                 or "not measured")
-              + f" a launch; CUDA events {row['ms']:.4f} ms", flush=True)
-    for label, fn in (("full_grid(torch.device('cuda'))",
-                       lambda: probes.full_grid(dev)),
+              f"{kernel} {fmt(row['device_ms'], 5)} a launch; CUDA events "
+              f"{row['ms']:.4f} ms", flush=True)
+    # the wrapper, and its two parts: torch.empty of the grid, and the C
+    # entry point through ctypes into a grid made before
+    grid6 = probes.full_grid(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    clock = {
+        "full_grid": host_us(lambda: probes.full_grid(dev), 200),
+        "torch.empty": host_us(lambda: torch.empty(
+            probes.GRID_SHAPE, dtype=torch.float32, device=dev), 200),
+        "slam_probe_fill": host_us(lambda: build.library().slam_probe_fill(
+            grid6.data_ptr(), grid6.numel(), 1.0, stream), 200),
+        "torch.ones": host_us(lambda: torch.ones(probes.GRID_SHAPE,
+                                                 device=dev), 200)}
+    glue = clock["full_grid"] - clock["torch.empty"] - clock["slam_probe_fill"]
+    print(f"[11] host side, us a call by the host clock (200 calls that "
+          f"only enqueue): full_grid(torch.device('cuda')) "
+          f"{clock['full_grid']:.2f} = torch.empty {clock['torch.empty']:.2f}"
+          f" + the C entry through ctypes {clock['slam_probe_fill']:.2f} + "
+          f"Python {glue:.2f}; torch.ones {clock['torch.ones']:.2f}",
+          flush=True)
+    for label, fn in (("full_grid", lambda: probes.full_grid(dev)),
                       ("torch.ones", lambda: torch.ones(probes.GRID_SHAPE,
                                                         device=dev))):
-        host_us, events = host_side(fn, 200)
-        top = sorted(events.items(), key=lambda kv: -kv[1])[:6]
-        print(f"[11] host side of {label}: {host_us:.2f} us a call by the "
-              f"host clock (enqueue only); torch.profiler CPU events, self "
-              f"us a call: " + ", ".join(f"{k} {v:.2f}" for k, v in top)
-              + f"; the rest (Python, ctypes) "
-              f"{host_us - sum(events.values()):.2f}", flush=True)
+        top = sorted(cpu_events(fn, 200).items(), key=lambda kv: -kv[1])[:6]
+        print(f"[11] {label} under torch.profiler, CPU events, self us a "
+              f"call: " + ", ".join(f"{k} {v:.2f}" for k, v in top),
+              flush=True)
 
-    # P9 by name: [10]'s timed case and the tool's full mode at 8 reps
+    # P9: [10]'s timed case and the tool's full mode at 8 repetitions
     g512 = torch.as_tensor(np.random.default_rng(1).normal(
         0, 1, (vpu_probe.GRID, vpu_probe.GRID)), dtype=torch.float32,
         device=dev)
@@ -949,25 +956,20 @@ def main() -> int:
                               device=dev)
     w_tool = torch.as_tensor(vpu_probe.words_for(vpu_probe.M1, 10),
                              device=dev)
-    p9 = {"timed": named_ms(lambda: probes.vpu_loop(
-              w_small, g512.clone(), P9_TIME_PAIRS, "full", P9_TIME_REPS),
-              100, "vpu_loop_kernel"),
-          "full_16384x8": named_ms(lambda: probes.vpu_loop(
-              w_tool, g512, vpu_probe.M1, "full", 8), 5, "vpu_loop_kernel")}
+    # one kernel, vpu_loop_kernel<2> in mode full, one launch a call
     p9_row = rows_by_name["vpu_loop"]
-    p9_row["device_ms"] = sum(p9["timed"].values()) if p9["timed"] else None
-    p9_row["device_ms_full_16384x8"] = (sum(p9["full_16384x8"].values())
-                                        if p9["full_16384x8"] else None)
-    print(f"[11] vpu_loop under torch.profiler: full mode, {P9_TIME_PAIRS} "
-          f"pairs x {P9_TIME_REPS} (100 calls): "
-          + (", ".join(f"{k} {v:.5f} ms" for k, v in p9["timed"].items())
-             or "not measured")
-          + f" a call (CUDA events, with the grid's clone, "
-          f"{p9_row['ms']:.4f} ms); full mode, {vpu_probe.M1} pairs x 8 (5 "
-          f"calls, {2 * vpu_probe.M1 * 8} visits): "
-          + (", ".join(f"{k} {v:.4f} ms"
-                       for k, v in p9["full_16384x8"].items())
-             or "not measured") + " a call", flush=True)
+    p9_row["device_ms"] = device_ms(lambda: probes.vpu_loop(
+        w_small, g512.clone(), P9_TIME_PAIRS, "full", P9_TIME_REPS), 100,
+        "vpu_loop_kernel")
+    p9_row["device_ms_full_16384x8"] = device_ms(lambda: probes.vpu_loop(
+        w_tool, g512, vpu_probe.M1, "full", 8), 5, "vpu_loop_kernel")
+    print(f"[11] vpu_loop under torch.profiler, its one kernel "
+          f"vpu_loop_kernel<2> (mode full): {P9_TIME_PAIRS} pairs x "
+          f"{P9_TIME_REPS}, 100 calls, {fmt(p9_row['device_ms'], 5)} a call "
+          f"(CUDA events, with the grid's clone, {p9_row['ms']:.4f} ms); "
+          f"{vpu_probe.M1} pairs x 8, 5 calls ({2 * vpu_probe.M1 * 8} "
+          f"visits), {fmt(p9_row['device_ms_full_16384x8'])} a call",
+          flush=True)
 
     # P7 and P8 a pass, at the probe tools' sizes
 

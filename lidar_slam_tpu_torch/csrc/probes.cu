@@ -23,13 +23,14 @@
 // tile, so a cell has one tile-local position (s, l) whatever tile covers
 // it. In P1-P4 the thread that owns (s, l) does every add to the cells at
 // that position, in order; in P9 a thread owns one cell of one tile
-// position and does its adds. No other thread touches them, so each cell's
-// float32 sum is the sequential one. The TPU's masked RMW also adds 0.0 to the rest
-// of the tile; x + 0.0 == x for every x except -0.0 and NaN, which no
-// probe's grid holds (it starts at +0.0 or at finite random values, and a
-// round-to-nearest sum of nonzero terms is never -0.0), so those adds are
-// skipped. P7 partitions its updates stably by cell, P8 counts (below).
-// Cells outside the grid are dropped (the tools never produce them).
+// position and does its adds. No other thread touches them, so each
+// cell's float32 sum is the sequential one. The TPU's masked RMW also adds
+// 0.0 to the rest of the tile; x + 0.0 == x for every x except -0.0 and
+// NaN, which no probe's grid holds (it starts at +0.0 or at finite random
+// values, and a round-to-nearest sum of nonzero terms is never -0.0), so
+// those adds are skipped. P7 partitions its updates stably by cell, P8
+// counts (below). Cells outside the grid are dropped (the tools never
+// produce them).
 //
 // What bounds them on an H100. P1-P5 move under 70 KB: one launch, a few
 // microseconds. P6 writes the padded 1208 x 1216 grid (5.9 MB): bytes,
@@ -583,11 +584,12 @@ segment_rmw_kernel(const int32_t* __restrict__ x8s,
 // once and walked reps times; a longer one is filtered and walked a part
 // at a time, every repetition. The walk is the kernel's cost: every thread
 // of the block takes every entry, a few dozen instructions each (up to
-// 8,192 cell tests a visit over its owners). The issue rate bounds fullv;
-// full and the ray modes wait on their words' loads from device memory.
-// (A binning pass that builds ordered per-tile lists first, as P7 does,
-// measured within 3% of this at the tool's 16,384 pairs and 2.4 times
-// slower at 64 pairs, in four launches: PERF.md, PR 7.)
+// 8,192 cell tests a visit over its owners). The rate at which the card
+// issues instructions bounds fullv; full and the ray modes wait on their
+// words' loads from device memory. (A binning pass that builds ordered
+// per-tile lists first, as P7 does, measured within 3% of this at the
+// tool's 16,384 pairs and 2.4 times slower at 64 pairs, in four launches;
+// PERF.md.)
 //
 // Modes. rmw and vec compute their words from the loop index; full reads a
 // visit's two words from device memory at the walk (a broadcast load each);

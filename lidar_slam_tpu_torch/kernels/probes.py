@@ -57,7 +57,7 @@ def _launch(wrapper, entry: str, device: torch.device, *args) -> None:
     torch.cuda.Stream object, and the current device is switched only when
     `device` is another one (both cost host time on every call)."""
     fn = getattr(build.library(), entry)
-    current = torch.cuda.current_device()
+    current = torch._C._cuda_getDevice()  # the caller's tensors set CUDA up
     index = current if device.index is None else device.index
     if index == current:
         rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
@@ -699,9 +699,10 @@ def vpu_loop(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
     _vpu_check(words, grid, n_pairs, mode, reps)
     if not grid.is_cuda:
         return vpu_loop_plain(words, grid, n_pairs, mode, reps)
-    _check("grid", grid, torch.float32, 2, grid.device)
-    _check("words", words, torch.int32, 2, grid.device)
-    _launch(vpu_loop, "slam_probe_vpu_loop", grid.device, words.data_ptr(),
+    dev = grid.device
+    _check("grid", grid, torch.float32, 2, dev)
+    _check("words", words, torch.int32, 2, dev)
+    _launch(vpu_loop, "slam_probe_vpu_loop", dev, words.data_ptr(),
             words.shape[1], n_pairs, VPU_MODES.index(mode), reps, LOG4,
             grid.data_ptr(), *grid.shape)
     return grid

@@ -15,20 +15,20 @@ work (ops/raywalk.py _make_kernel_v8 emit()) to decompose its cost:
 The TPU tool's grid=(1,) kernel was the whole v5e chip; on the card the
 kernel spreads the grid's cells over all of it, a block for each 8 x 128
 owner of a (64, 128) tile position, each cell in a register of its
-thread, each block walking the visits of its tile in order (csrc/probes.cu
-"P9"). So the slopes below are the whole card's: what a visit costs when
-every tile's visits run at once, not the serial cost on one multiprocessor
-that the K2 map kernel's one warp pays (PR 3's one-block kernel measured
-545.0 ns a visit on one SM; PERF.md). Each mode is timed at 8 and 40
-repetitions of m1 pairs; the slope between them is the marginal cost
-(launch overhead and the one-time filter of the visits cancel): ns per
-visit for the pair modes, ns per ray for the ray modes. per-ray setup = 2
-slope(ray1) - slope(ray2). A block tests every cell of its part of a
-visit's tile, after skipping the visits whose mask band misses its rows,
-so a visit's cost depends on the cells and rows it writes, which differ
-between the modes (printed as cells/visit): the slopes of two modes are
-not a decomposition of one another. The grid (512 x 512, 1 MB) is read
-and written once a call.
+thread, each block walking the visits of its tile in order
+(csrc/probes.cu "P9"). So the slopes below are the whole card's: what a
+visit costs when every tile's visits run at once, not the serial cost on
+one multiprocessor that the K2 map kernel's one warp pays (the earlier
+one-block kernel measured 545.0 ns a visit on one SM; PERF.md). Each
+mode is timed at 8 and 40 repetitions of m1 pairs; the slope between
+them is the marginal cost (launch overhead and the one-time filter of
+the visits cancel): ns per visit for the pair modes, ns per ray for the
+ray modes. per-ray setup = 2 slope(ray1) - slope(ray2). A block tests
+every cell of its part of a visit's tile, after skipping the visits
+whose mask band misses its rows, so a visit's cost depends on the cells
+and rows it writes, which differ between the modes (printed as
+cells/visit): the slopes of two modes are not a decomposition of one
+another. The grid (512 x 512, 1 MB) is read and written once a call.
 
     python -m lidar_slam_tpu_torch.tools.vpu_probe [--m1 16384] [--reps 5]
         [--modes rmw,vec,full,fullv,ray1,ray2]
