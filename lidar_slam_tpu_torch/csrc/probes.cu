@@ -588,8 +588,8 @@ segment_rmw_kernel(const int32_t* __restrict__ x8s,
 // issues instructions bounds fullv; full and the ray modes wait on their
 // words' loads from device memory. (A binning pass that builds ordered
 // per-tile lists first, as P7 does, measured within 3% of this at the
-// tool's 16,384 pairs and 2.4 times slower at 64 pairs, in four launches;
-// PERF.md.)
+// tool's 16,384 pairs and 1.6-3.1 times slower at 64 pairs, in four
+// launches; PERF.md.)
 //
 // Modes. rmw and vec compute their words from the loop index; full reads a
 // visit's two words from device memory at the walk (a broadcast load each);
