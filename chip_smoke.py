@@ -49,11 +49,13 @@ first failure and catches nothing):
      saved mid-stream and resumed on the GPU must continue bit for bit;
  10. the probe kernels P1-P9 (csrc/probes.cu) against their plain versions
      on CPU copies, bit-exact, at the JAX probe tools' sizes (P9's six
-     modes at the tool's 16,384-pair word table, one repetition), P7 also
+     modes at the tool's 16,384-pair word table, two repetitions), P7 also
      with one cell taking an eighth of its 657,408 adds, P8 also with all
      82,432 segments on one tile; timed in turns with the library call
      where one computes the same function (P9 at a reduced 64 pairs x 2
-     repetitions, as its plain version loops in Python); then, with the launch counters reset, the port's three
+     repetitions, as its plain version loops in Python, with the timed
+     case's kernel output held bit for bit against its plain version's on
+     the card); then, with the launch counters reset, the port's three
      probe tools (lidar_slam_tpu_torch/tools: pallas_probe,
      scatter_microbench, vpu_probe) at the JAX tools' sizes and counts;
  11. device time a launch from torch.profiler (self CUDA time over the
@@ -384,9 +386,10 @@ def probe_cases(dev) -> list:
                           16 * nseg + grid_bytes,
                           nseg * probes.TS * probes.LANES, 20, tag))
 
-    # P9: checked at the tool's word table (m1 pairs, one repetition: the
-    # fullv staging rounds and the 4,096-column ray table wrapping); timed
-    # at a reduced pair count, as its plain version loops in Python
+    # P9: checked at the tool's word table (m1 pairs, two repetitions: the
+    # fullv staging rounds, the 4,096-column ray table wrapping, and each
+    # block's list filtered once and walked twice); timed at a reduced pair
+    # count, as its plain version loops in Python, and checked there too
     m1, n_p, reps = vpu_probe.M1, P9_TIME_PAIRS, P9_TIME_REPS
     shape = (vpu_probe.GRID, vpu_probe.GRID)
     grid = torch.as_tensor(np.random.default_rng(1).normal(0, 1, shape),
@@ -403,11 +406,11 @@ def probe_cases(dev) -> list:
         visits_per_iter = 1 if mode == "ray1" else 2
         cases.append(ProbeCase(
             probes.vpu_loop,
-            f"vpu_loop {mode} (checked at {m1} pairs x 1, timed at {n_p} "
-            f"pairs x {reps})",
+            f"vpu_loop {mode} (checked at {m1} pairs x 2 and timed at "
+            f"{n_p} pairs x {reps})",
             lambda b=big_g, bc=big, m=mode: (
-                probes.vpu_loop(b, g_dev.clone(), m1, m, 1),
-                probes.vpu_loop(bc, grid.clone(), m1, m, 1)),
+                probes.vpu_loop(b, g_dev.clone(), m1, m, 2),
+                probes.vpu_loop(bc, grid.clone(), m1, m, 2)),
             lambda w=w_g, m=mode: probes.vpu_loop(w, g_dev.clone(), n_p, m,
                                                   reps),
             lambda w=w_g, m=mode: probes.vpu_loop_plain(w, g_dev.clone(),
@@ -439,6 +442,9 @@ def probe_phase(dev) -> list:
                                      1 if c.fn is probes.vpu_loop else None)
         b_ms, b_by = bound(c.nbytes, c.ops)
         k = c.kernel()
+        if c.fn is probes.vpu_loop and not torch.equal(
+                k.view(torch.int32), c.plain().view(torch.int32)):
+            fail(f"{c.label}: the timed case differs from its plain version")
         lib_err = float((c.library().reshape(k.shape) - k).abs().max())
         print(f"[10] {c.label} vs plain: bit-exact; kernel {ms:.4f} ms, "
               f"plain on the GPU {plain_ms:.4f} ms, library {lib_ms:.4f} ms "

@@ -29,11 +29,16 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# torch's private bindings for the current device's index and the current
+# raw stream of a device index
+RAW_CUDA = ("_cuda_getDevice", "_cuda_getCurrentRawStream")
 
 
 def sources() -> list[Path]:
@@ -126,3 +131,23 @@ def library() -> ctypes.CDLL:
     lib.slam_probe_tile_rmw_scratch.argtypes = [i, i, i]
     lib.slam_probe_tile_rmw_scratch.restype = i64
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def cuda_raw():
+    """(get_device, raw_stream): get_device() is the current device's index
+    and raw_stream(index) the handle of that device's current stream, as
+    int, from torch's private bindings (RAW_CUDA). The wrappers call them
+    on every launch: torch.cuda.current_stream(i).cuda_stream builds a
+    torch.cuda.Stream object each time, which costs host time. Private
+    names can change between torch releases, so this is the one place that
+    reads them: it raises, naming what is missing, where this torch lacks
+    one (a CPU-only build lacks both)."""
+    missing = [name for name in RAW_CUDA if not hasattr(torch._C, name)]
+    if missing:
+        raise RuntimeError(
+            f"torch {torch.__version__} has no torch._C."
+            f"{', torch._C.'.join(missing)}: the kernel wrappers need "
+            f"{' and '.join(RAW_CUDA)} (a CUDA build of torch that still "
+            f"has them)")
+    return tuple(getattr(torch._C, name) for name in RAW_CUDA)

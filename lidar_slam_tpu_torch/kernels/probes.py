@@ -53,17 +53,19 @@ def _check_pairs(xs: torch.Tensor, ys: torch.Tensor) -> None:
 def _launch(wrapper, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point on the current stream of `device` (an index-
     less device is the current one); count the launch on `wrapper` and
-    raise if it was refused. The stream is fetched raw, with no
-    torch.cuda.Stream object, and the current device is switched only when
-    `device` is another one (both cost host time on every call)."""
+    raise if it was refused. The stream is fetched raw (build.cuda_raw),
+    with no torch.cuda.Stream object, and the current device is switched
+    only when `device` is another one (both cost host time on every
+    call)."""
     fn = getattr(build.library(), entry)
-    current = torch._C._cuda_getDevice()  # the caller's tensors set CUDA up
+    get_device, raw_stream = build.cuda_raw()
+    current = get_device()  # the caller's tensors set CUDA up
     index = current if device.index is None else device.index
     if index == current:
-        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        rc = fn(*args, raw_stream(index))
     else:
         with torch.cuda.device(index):
-            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+            rc = fn(*args, raw_stream(index))
     wrapper.launches += 1
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")

@@ -56,14 +56,10 @@ N_RAYS_DS = 4956 * 1081  # dataset-20 scans x rays
 CELLS_PAIRS = 2048  # pairs whose visits' cells are counted
 
 
-def words_for(n_pairs: int, seed: int, rays: bool = False,
-              tiles=((0, GRID // TS), (0, GRID // LANES))) -> np.ndarray:
+def words_for(n_pairs: int, seed: int, rays: bool = False) -> np.ndarray:
     """The JAX tool's word table: (4, n_pairs) int32 of two (C, w2) visits
-    per pair, or (10, min(n_pairs, 4096)) with six per-ray aux words. The
-    visits' tile rows and lane tiles are drawn from the ranges `tiles`
-    ((lo, hi) each, lane tiles below 16); the default is the tool's 512 x
-    512 grid."""
-    (r_lo, r_hi), (c_lo, c_hi) = tiles
+    per pair, or (10, min(n_pairs, 4096)) with six per-ray aux words."""
+    n_row_t, n_lane_t = GRID // TS, GRID // LANES
     r = np.random.default_rng(seed)
     if rays:
         n_pairs = min(n_pairs, probes.RAY_W_MAX)
@@ -71,8 +67,8 @@ def words_for(n_pairs: int, seed: int, rays: bool = False,
     w[0] = r.integers(0, 1024, n_pairs)
     w[2] = r.integers(0, 1024, n_pairs)
     for row in (1, 3):
-        tile = (r.integers(c_lo, c_hi, n_pairs)
-                | (r.integers(r_lo, r_hi, n_pairs) << 4))
+        tile = (r.integers(0, n_lane_t, n_pairs)
+                | (r.integers(0, n_row_t, n_pairs) << 4))
         w[row] = (r.integers(0, 64, n_pairs)
                   | (r.integers(0, 64, n_pairs) << 7) | (tile << 15))
     if rays:

@@ -24,6 +24,7 @@ from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
 from lidar_slam_tpu_torch.ops.raywalk import scan_delta_raywalk
 from lidar_slam_tpu_torch.tools import pallas_probe, scatter_microbench
 from lidar_slam_tpu_torch.tools import vpu_probe
+from torch_vpu_tiles import retile
 
 pytestmark = pytest.mark.cuda
 
@@ -673,9 +674,13 @@ VPU_HOT = ((3, 4), (2, 3)), (vpu_probe.GRID, vpu_probe.GRID)  # one tile
 ])
 def test_vpu_loop_edge_cases(dev, mode, n_pairs, reps, where):
     """P9 in place, bit-exact, where owners and lists are at their edges."""
-    tiles, shape = where or (((0, 8), (0, 4)), (vpu_probe.GRID,) * 2)
-    words = torch.from_numpy(vpu_probe.words_for(
-        max(n_pairs, 1), 7, rays=mode in ("ray1", "ray2"), tiles=tiles))
+    words = vpu_probe.words_for(max(n_pairs, 1), 7,
+                                rays=mode in ("ray1", "ray2"))
+    shape = (vpu_probe.GRID, vpu_probe.GRID)
+    if where:
+        tiles, shape = where
+        words = retile(words, tiles, 7)
+    words = torch.from_numpy(words)
     grid = torch.as_tensor(np.random.default_rng(8).normal(0, 1, shape),
                            dtype=torch.float32)
     want = probes.vpu_loop(words, grid.clone(), n_pairs, mode, reps)
@@ -686,6 +691,20 @@ def test_vpu_loop_edge_cases(dev, mode, n_pairs, reps, where):
     assert probes.vpu_loop.launches == before + 1
     _same_bits(g, want)
     assert int((want != grid).sum()) > (100 if n_pairs and reps else -1)
+
+
+def test_cuda_raw_bindings_are_torchs_current_device_and_stream(dev):
+    """This torch still has the private bindings the wrappers launch with,
+    and they give what the public API gives, on the default stream and on
+    a side stream."""
+    build.cuda_raw.cache_clear()
+    get_device, raw_stream = build.cuda_raw()
+    assert get_device() == torch.cuda.current_device()
+    index = get_device()
+    assert raw_stream(index) == torch.cuda.current_stream(index).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert raw_stream(index) == side.cuda_stream
 
 
 @pytest.mark.parametrize("device", [torch.device("cuda"), "cuda:0",

@@ -117,6 +117,46 @@ def test_library_path_hashes_every_csrc_file(tmp_path, monkeypatch):
     assert build.library_path() == base
 
 
+@pytest.mark.parametrize("gone", [("_cuda_getDevice",),
+                                  ("_cuda_getCurrentRawStream",),
+                                  ("_cuda_getDevice",
+                                   "_cuda_getCurrentRawStream")])
+def test_cuda_raw_names_what_this_torch_lacks(monkeypatch, gone):
+    """The wrappers' one reader of torch's private CUDA bindings raises,
+    naming each binding a torch release lacks, instead of failing in a
+    wrapper."""
+    from lidar_slam_tpu_torch.kernels import build
+
+    for name in build.RAW_CUDA:
+        monkeypatch.setattr(torch._C, name, lambda *a: 0, raising=False)
+    for name in gone:
+        monkeypatch.delattr(torch._C, name)
+    build.cuda_raw.cache_clear()
+    try:
+        with pytest.raises(RuntimeError) as err:
+            build.cuda_raw()
+        for name in build.RAW_CUDA:
+            assert (f"torch._C.{name}" in str(err.value)) == (name in gone)
+    finally:
+        build.cuda_raw.cache_clear()
+
+
+def test_cuda_raw_returns_the_bindings(monkeypatch):
+    """Where torch has both bindings, cuda_raw hands back exactly them."""
+    from lidar_slam_tpu_torch.kernels import build
+
+    fakes = (lambda: 3, lambda index: 1000 + index)
+    for name, fake in zip(build.RAW_CUDA, fakes):
+        monkeypatch.setattr(torch._C, name, fake, raising=False)
+    build.cuda_raw.cache_clear()
+    try:
+        get_device, raw_stream = build.cuda_raw()
+        assert (get_device, raw_stream) == fakes
+        assert raw_stream(get_device()) == 1003
+    finally:
+        build.cuda_raw.cache_clear()
+
+
 def _dataclasses(mod):
     return {n: c for n, c in vars(mod).items()
             if dataclasses.is_dataclass(c) and isinstance(c, type)}

@@ -19,6 +19,7 @@ import torch
 from lidar_slam_tpu_torch.kernels import probes
 from lidar_slam_tpu_torch.tools import vpu_probe as tvp
 from tests.test_torch_probes import jax_vpu_calls, tools_env  # noqa: F401
+from torch_vpu_tiles import retile
 
 torch.set_num_threads(1)
 
@@ -35,9 +36,10 @@ def _case(mode, n_pairs, seed, where=((tvp.GRID, tvp.GRID), None)):
     tiles drawn from where[1], the tool's by default) and a random grid of
     shape where[0]."""
     shape, tiles = where
-    kw = {} if tiles is None else {"tiles": tiles}
-    words = torch.from_numpy(tvp.words_for(n_pairs, seed, rays=mode in RAYS,
-                                           **kw))
+    words = tvp.words_for(n_pairs, seed, rays=mode in RAYS)
+    if tiles is not None:
+        words = retile(words, tiles, seed)
+    words = torch.from_numpy(words)
     grid = torch.from_numpy(np.random.default_rng(seed + 1).normal(
         0, 1, shape).astype(np.float32))
     return words, grid
