@@ -55,23 +55,28 @@ first failure and catches nothing):
      where one computes the same function (P9 at a reduced 64 pairs x 2
      repetitions, as its plain version loops in Python, with the timed
      case's kernel output held bit for bit against its plain version's on
-     the card); then, with the launch counters reset, the port's three
-     probe tools (lidar_slam_tpu_torch/tools: pallas_probe,
-     scatter_microbench, vpu_probe) at the JAX tools' sizes and counts;
+     the card), P3 also with 65,536 entries, 7 in 8 on one tile, and P5
+     also at 4,096 entries whose float32 sum depends on the order; then,
+     with the launch counters reset, the port's three probe tools
+     (lidar_slam_tpu_torch/tools: pallas_probe, scatter_microbench,
+     vpu_probe) at the JAX tools' sizes and counts;
  11. device time a launch from torch.profiler (self CUDA time over the
      launches) beside the CUDA-event time, for raywalk_scan over 100
      clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
      pairs; raywalk_build's binning and walk kernels over three main-path
      builds, and the walk's ns a crossing of the hottest owner; P1-P6 over
-     100 launches each on the JAX tool's inputs, and the host's side of a
-     P6 call (the host clock of the wrapper and of its torch.empty and its
-     C entry point alone, and torch.profiler's CPU events) beside
-     torch.ones; P7's five kernels and P8's one over 20 calls at the
-     tools' sizes; P9's kernel, by name, at [10]'s timed case and at the
-     tool's full mode (16,384 pairs x 8 repetitions); and 100 online steps
-     of a fresh stream (after 20 unprofiled ones): device time and kernel
-     launches a step, and the share of raywalk_scan and nn_argmin (last, so
-     the profiler cannot slow the timings before it).
+     100 launches each on the JAX tool's inputs (P3 and P5 also at [10]'s
+     second cases); the host's side of a P1-P6 call and of nn_argmin at
+     B = 1 (tools/host_split: the host clock of the wrapper, of its
+     torch.empty and of its C entry point alone, and the rest, its
+     Python) beside sum, index_add_ and torch.ones, and torch.profiler's
+     CPU events of P5 and P6 beside sum and torch.ones; P7's five kernels
+     and P8's one over 20 calls at the tools' sizes; P9's kernel, by name,
+     at [10]'s timed case and at the tool's full mode (16,384 pairs x 8
+     repetitions); and 100 online steps of a fresh stream (after 20
+     unprofiled ones): device time and kernel launches a step, and the
+     share of raywalk_scan and nn_argmin (last, so the profiler cannot
+     slow the timings before it).
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2 and K4; the
@@ -79,8 +84,9 @@ tools' run in [10] for P1-P9), its error against its plain version, its,
 the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
-every kernel with its profiler device time; P9 also with the probe tool's
-slopes), and {"ok": true, "device": ...}.
+every kernel with its profiler device time; P1-P6 and nn_argmin at B = 1
+with their host split; P9 also with the probe tool's slopes), and
+{"ok": true, "device": ...}.
 """
 
 import json
@@ -194,19 +200,6 @@ def pass_ms(fn, reps: int, names) -> dict:
     return out
 
 
-def host_us(fn, reps: int) -> float:
-    """Host microseconds a call of fn by the host clock, over reps calls
-    that only enqueue (one sync after them)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
 def cpu_events(fn, reps: int) -> dict:
     """{CPU event: self CPU us a call} of reps calls of fn under
     torch.profiler (CUDA runtime calls included; the profiler slows
@@ -310,6 +303,30 @@ def one_tile_segments(n: int):
             (100 * k + 1).astype(np.int32), (700 * k).astype(np.int32))
 
 
+P3_HOT, P5_N = 65_536, 4096  # [10]'s second cases of P3 and P5
+
+
+def hot_tile_entries(n: int):
+    """P3's hot case: n entries on the (64, 256) grid, 7 in 8 of them on
+    the tile at rows [40, 48) x lanes [128, 256)."""
+    from lidar_slam_tpu_torch.kernels import probes
+
+    rng = np.random.default_rng(14)
+    W, H = probes.PROBE_SHAPE
+    xs = rng.integers(0, W, n).astype(np.int32)
+    ys = rng.integers(0, H, n).astype(np.int32)
+    hot = rng.random(n) < 7 / 8
+    xs[hot] = rng.integers(40, 48, int(hot.sum()))
+    ys[hot] = rng.integers(128, 256, int(hot.sum()))
+    return xs, ys
+
+
+def order_sensitive(n: int) -> np.ndarray:
+    """P5's second case: [1e8, 1, -1e8, 1] repeated; in float32 1e8 + 1
+    rounds to 1e8, so the in-order sum is 1.0 and a tree sum is not."""
+    return np.tile(np.float32([1e8, 1.0, -1e8, 1.0]), n // 4)
+
+
 class ProbeCase(NamedTuple):
     """One probe comparison. check() returns (kernel output, plain version
     on CPU copies), the exactness check; kernel(), plain() and library()
@@ -363,6 +380,20 @@ def probe_cases(dev) -> list:
                        probes.GRID_SHAPE, device=dev)}.get(fn)
         cases.append(case(fn, name, g, c, library or adds_library(fn, g),
                           sum(a.nbytes for a in arrays) + 4 * out_n, ops, 50))
+    for label, fn, arrays, tag in [
+            (f"dynamic_lane_store hot tile n={P3_HOT}",
+             probes.dynamic_lane_store, hot_tile_entries(P3_HOT), "hot_tile"),
+            (f"scalar_sum order-sensitive n={P5_N}", probes.scalar_sum,
+             (order_sensitive(P5_N),), f"n{P5_N}")]:
+        g = [torch.as_tensor(a, device=dev) for a in arrays]
+        n = len(arrays[0])
+        sums = fn is probes.scalar_sum
+        cases.append(case(
+            fn, label, g, [torch.as_tensor(a) for a in arrays],
+            (lambda g=g: g[0].sum()) if sums else adds_library(fn, g),
+            sum(a.nbytes for a in arrays) + 4 * (1 if sums else int(
+                np.prod(probes.PROBE_SHAPE))),
+            n if sums else n * probes.TS * probes.LANES, 20, tag))
     u = scatter_microbench.UPDATES[0]
     grid_bytes = 4 * int(np.prod(probes.GRID_SHAPE))
     for label, arrays, tag in [
@@ -910,13 +941,15 @@ def main() -> int:
           f"{fmt(k1_ms['walk'])} a build{per_crossing}; CUDA events "
           f"{rw_ms:.3f} ms a build", flush=True)
 
-    # P1-P6 a launch on the JAX tool's inputs, and P6's host side beside
-    # torch.ones
+    # P1-P6 a launch on the JAX tool's inputs (P3 and P5 also at [10]'s
+    # second cases), then the host's side of P1-P6 and K4 at B = 1
     from lidar_slam_tpu_torch.kernels import probes
-    from lidar_slam_tpu_torch.tools import (pallas_probe, scatter_microbench,
-                                            vpu_probe)
+    from lidar_slam_tpu_torch.tools import (host_split, pallas_probe,
+                                            scatter_microbench, vpu_probe)
 
     rows_by_name = {row["name"]: row for row in probe_rows}
+    second = {probes.dynamic_lane_store: ("hot_tile", hot_tile_entries(
+        P3_HOT)), probes.scalar_sum: (f"n{P5_N}", (order_sensitive(P5_N),))}
     for name, fn in pallas_probe.KERNELS.items():
         args = [torch.as_tensor(a, device=dev)
                 for a in pallas_probe.inputs(name)] or [dev]
@@ -924,29 +957,26 @@ def main() -> int:
                   else f"{fn.__name__}_kernel")
         row = rows_by_name[fn.__name__]
         row["device_ms"] = device_ms(lambda: fn(*args), 100, kernel)
+        more = ""
+        if fn in second:
+            tag, arrays = second[fn]
+            args2 = [torch.as_tensor(a, device=dev) for a in arrays]
+            row[f"device_ms_{tag}"] = device_ms(lambda: fn(*args2), 100,
+                                                kernel)
+            more = (f"; {tag} {fmt(row[f'device_ms_{tag}'], 5)}, CUDA "
+                    f"events {row[f'ms_{tag}']:.4f} ms")
         print(f"[11] {fn.__name__} under torch.profiler, 100 launches: "
               f"{kernel} {fmt(row['device_ms'], 5)} a launch; CUDA events "
-              f"{row['ms']:.4f} ms", flush=True)
-    # the wrapper, and its two parts: torch.empty of the grid, and the C
-    # entry point through ctypes into a grid made before
-    grid6 = probes.full_grid(dev)
-    stream = torch.cuda.current_stream().cuda_stream
-    clock = {
-        "full_grid": host_us(lambda: probes.full_grid(dev), 200),
-        "torch.empty": host_us(lambda: torch.empty(
-            probes.GRID_SHAPE, dtype=torch.float32, device=dev), 200),
-        "slam_probe_fill": host_us(lambda: build.library().slam_probe_fill(
-            grid6.data_ptr(), grid6.numel(), 1.0, stream), 200),
-        "torch.ones": host_us(lambda: torch.ones(probes.GRID_SHAPE,
-                                                 device=dev), 200)}
-    glue = clock["full_grid"] - clock["torch.empty"] - clock["slam_probe_fill"]
-    print(f"[11] host side, us a call by the host clock (200 calls that "
-          f"only enqueue): full_grid(torch.device('cuda')) "
-          f"{clock['full_grid']:.2f} = torch.empty {clock['torch.empty']:.2f}"
-          f" + the C entry through ctypes {clock['slam_probe_fill']:.2f} + "
-          f"Python {glue:.2f}; torch.ones {clock['torch.ones']:.2f}",
-          flush=True)
-    for label, fn in (("full_grid", lambda: probes.full_grid(dev)),
+              f"{row['ms']:.4f} ms{more}", flush=True)
+    split = host_split.run(lambda m: print(f"[11] {m}", flush=True))
+    for label, t in split.items():
+        if label in rows_by_name:
+            rows_by_name[label]["host_us"] = t
+    xs5 = torch.as_tensor(pallas_probe.inputs("v5_vmem_scalar_read")[0],
+                          device=dev)
+    for label, fn in (("scalar_sum", lambda: probes.scalar_sum(xs5)),
+                      ("sum", lambda: xs5.sum()),
+                      ("full_grid", lambda: probes.full_grid(dev)),
                       ("torch.ones", lambda: torch.ones(probes.GRID_SHAPE,
                                                         device=dev))):
         top = sorted(cpu_events(fn, 200).items(), key=lambda kv: -kv[1])[:6]
@@ -1041,7 +1071,7 @@ def main() -> int:
          "bound_by": nn_bound[1], "library_ms": nn_lib_ms,
          "device_ms": dev_nn, "ms_b1": nn1_ms, "plain_ms_b1": nn1_plain_ms,
          "library_ms_b1": nn1_lib_ms, "bound_ms_b1": nn1_bound[0],
-         "device_ms_b1": dev_nn1},
+         "device_ms_b1": dev_nn1, "host_us_b1": split["nn_argmin_b1"]},
         # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",

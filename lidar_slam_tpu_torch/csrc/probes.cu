@@ -21,16 +21,17 @@
 // (update order, segment order or emit order). P1-P4 and P9: the TPU tiles
 // are (8, 128) or (64, 128), always at offsets that are multiples of the
 // tile, so a cell has one tile-local position (s, l) whatever tile covers
-// it. In P1-P4 the thread that owns (s, l) does every add to the cells at
-// that position, in order; in P9 a thread owns one cell of one tile
-// position and does its adds. No other thread touches them, so each
-// cell's float32 sum is the sequential one. The TPU's masked RMW also adds
+// it. In P1, P2 and P4 the thread that owns (s, l) does every add to the
+// cells at that position, in order; in P9 a thread owns one cell of one
+// tile position and does its adds. No other thread touches them, so each
+// cell's float32 sum is the sequential one. P5 folds in index order in
+// one warp. The TPU's masked RMW also adds
 // 0.0 to the rest of the tile; x + 0.0 == x for every x except -0.0 and
 // NaN, which no probe's grid holds (it starts at +0.0 or at finite random
 // values, and a round-to-nearest sum of nonzero terms is never -0.0), so
 // those adds are skipped. P7 partitions its updates stably by cell, P8
-// counts (below). Cells outside the grid are dropped (the tools never
-// produce them).
+// and P3 count (below). Cells outside the grid are dropped (the tools
+// never produce them).
 //
 // What bounds them on an H100. P1-P5 move under 70 KB: one launch, a few
 // microseconds. P6 writes the padded 1208 x 1216 grid (5.9 MB): bytes,
@@ -41,14 +42,16 @@
 // microsecond; what it measures is the cost of a masked (64, 128) tile
 // visit, spread over the card.
 //
-// Designs. P1-P4: one block of 1,024 threads, one per (8, 128) position.
-// P5: one thread. P6: 16-byte stores from the first 16-byte boundary (a
-// scalar head before it and a scalar tail after the last whole float4), a
-// float4 a thread, the grid sized from the element count and capped at
-// sixteen 256-thread blocks an SM. P7, P8: see "P7 and P8" below. P9: see
-// "P9" below (the TPU kernel's grid=(1,) was the whole v5e chip; one block
-// is 1/132 of an H100, so the new design spreads the tiles' cells over
-// the card and keeps each cell in a register).
+// Designs. P1, P2, P4: one block of 1,024 threads, one per (8, 128)
+// position. P3: a block for each (8, 128) tile position, counting (see
+// "P3" below). P5: one warp, an in-order fold. P6: 16-byte stores from
+// the first 16-byte boundary (a scalar head before it and a scalar tail
+// after the last whole float4), a float4 a thread, the grid sized from the
+// element count and capped at sixteen 256-thread blocks an SM. P7, P8:
+// see "P7 and P8" below. P9: see "P9" below (the TPU kernel's grid=(1,)
+// was the whole v5e chip; one block is 1/132 of an H100, so the new design
+// spreads the tiles' cells over the card and keeps each cell in a
+// register).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -102,15 +105,50 @@ dynamic_store_kernel(const int32_t* __restrict__ xs, int n,
     add_cell(out, W, H, (xs[i] >> 3) * TS + s, l, 1.f);
 }
 
-// P3: as P2 at the 128-aligned lane offset yl = floor(y / 128) * 128.
+// -- P3: count, then write once ------------------------------------------
+//
+// Replaced: pallas_probe.py::v3_dynamic_lane_store (:92), one (8, 128)
+// tile RMW (+1.0) per entry at (floor(x / 8) * 8, floor(y / 128) * 128)
+// into a VMEM-resident zero grid, in order. Bound on an H100: bytes, the
+// entries read once and the 64 x 256 grid written once (0.00002 ms at the
+// tool's 64 entries): launch-bound. The one-block design walked the 64
+// entries in turn, each a dependent global read-add-write of 16 cells a
+// thread (10 us on the device, the launch floor is 1.4).
+//
+// Every add is +1.0 to a whole tile of a zero grid, so a cell holds S_k,
+// the k-fold float32 sum of 1.0, where k counts the entries on its tile,
+// whatever their order; S_k = min(k, 2^24) exactly (float32 holds every
+// integer to 2^24, and 2^24 + 1 rounds to even, back to 2^24). So a block
+// of 1,024 threads for each tile position (16 on the tool's grid), thread
+// (s, l) owning the position's cell (s, l): the threads take the entries
+// strided (coalesced loads), count their tile's hits in integers, sum the
+// counts by a warp reduction and the 32 warp sums in shared memory, and
+// each writes its cell once. Integer sums need no order and no atomics.
+// An entry's tile is (x >> 3, y >> 7), an arithmetic shift (floor
+// division, as the plain version's): an entry off the grid's tiles counts
+// for none, and cells past a partial edge tile are not written.
 __global__ void __launch_bounds__(TILE_THREADS)
 dynamic_lane_store_kernel(const int32_t* __restrict__ xs,
                           const int32_t* __restrict__ ys, int n,
                           float* __restrict__ out, int W, int H) {
-  const int s = threadIdx.x / TL, l = threadIdx.x % TL;
-  zero_owned(out, W, H, s, l);
-  for (int i = 0; i < n; ++i)
-    add_cell(out, W, H, (xs[i] >> 3) * TS + s, (ys[i] >> 7) * TL + l, 1.f);
+  __shared__ unsigned warp_hits[TILE_THREADS / 32];
+  __shared__ unsigned tile_hits;
+  const int TY = (H + TL - 1) / TL;
+  const int tx = blockIdx.x / TY, ty = blockIdx.x % TY;
+  unsigned k = 0;
+  for (int i = threadIdx.x; i < n; i += TILE_THREADS)
+    k += (xs[i] >> 3) == tx && (ys[i] >> 7) == ty;
+  k = __reduce_add_sync(0xffffffffu, k);
+  if ((threadIdx.x & 31) == 0) warp_hits[threadIdx.x >> 5] = k;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    k = __reduce_add_sync(0xffffffffu, warp_hits[threadIdx.x]);
+    if (threadIdx.x == 0) tile_hits = k;
+  }
+  __syncthreads();
+  const int x = tx * TS + threadIdx.x / TL, y = ty * TL + threadIdx.x % TL;
+  if (x < W && y < H)
+    out[(size_t)x * H + y] = (float)min(tile_hits, 1u << 24);  // S_k
 }
 
 // P4: cell (x, y) += val: the one cell of the tile's mask.
@@ -127,12 +165,38 @@ masked_tile_kernel(const int32_t* __restrict__ xs,
   }
 }
 
-// P5: the in-order float32 sum of xs.
-__global__ void scalar_sum_kernel(const float* __restrict__ xs, int n,
-                                  float* __restrict__ out) {
+// P5: the in-order float32 sum of xs. Replaced:
+// pallas_probe.py::v5_vmem_scalar_read (:159), a scalar fori_loop over a
+// VMEM ref. Bound: one dependent add after another; at the tool's 32
+// entries the launch floor. One warp: lane j loads entry j of each chunk
+// of 32 (coalesced; the next chunk's load in flight while this one is
+// folded), and every lane folds the chunk's values in lane order, each
+// broadcast by __shfl_sync, so the sum is the sequential one, bit for bit.
+// Past the floor the chain of dependent adds bounds it, about 5 ns an add
+// on an H100 (a fold from shared memory is no faster; one thread loading
+// as it adds, the one-thread design, is 2.3x slower).
+
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+__global__ void __launch_bounds__(32)
+scalar_sum_kernel(const float* __restrict__ xs, int n,
+                  float* __restrict__ out) {
+  const int lane = threadIdx.x;
   float acc = 0.f;
-  for (int i = 0; i < n; ++i) acc = __fadd_rn(acc, xs[i]);
-  out[0] = acc;
+  float v = lane < n ? xs[lane] : 0.f;
+  for (int left = n; left > 0; left -= 32, xs += 32) {
+    const float next = lane + 32 < left ? xs[lane + 32] : 0.f;
+    if (left >= 32) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        acc = __fadd_rn(acc, __shfl_sync(FULL_WARP, v, j));
+    } else {
+      for (int j = 0; j < left; ++j)
+        acc = __fadd_rn(acc, __shfl_sync(FULL_WARP, v, j));
+    }
+    v = next;
+  }
+  if (lane == 0) out[0] = acc;
 }
 
 // P6: out[0, n) = val. The `head` elements before the first 16-byte
@@ -879,8 +943,8 @@ int tile_rmw_launch(const int32_t* xs, const int32_t* ys, const float* vs,
 }  // namespace
 
 // P1-P4: inputs of n entries, output (W, H) float32, written whole. One
-// block. Each entry point launches on `stream` and returns
-// cudaGetLastError() of the launch.
+// block (P3: one a tile position). Each entry point launches on `stream`
+// and returns cudaGetLastError() of the launch.
 extern "C" int slam_probe_smem_stream(const void* xs, int n, void* out, int W,
                                       int H, void* stream) {
   smem_stream_kernel<<<1, TILE_THREADS, 0, (cudaStream_t)stream>>>(
@@ -895,10 +959,15 @@ extern "C" int slam_probe_dynamic_store(const void* xs, int n, void* out,
   return last_error();
 }
 
+// P3: a block for each (8, 128) tile position of the grid.
 extern "C" int slam_probe_dynamic_lane_store(const void* xs, const void* ys,
                                              int n, void* out, int W, int H,
                                              void* stream) {
-  dynamic_lane_store_kernel<<<1, TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  if (n < 0 || W <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)((W + TS - 1) / TS) * ((H + TL - 1) / TL);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dynamic_lane_store_kernel<<<(int)tiles, TILE_THREADS, 0,
+                              (cudaStream_t)stream>>>(
       (const int32_t*)xs, (const int32_t*)ys, n, (float*)out, W, H);
   return last_error();
 }
@@ -911,11 +980,11 @@ extern "C" int slam_probe_masked_tile(const void* xs, const void* ys, int n,
   return last_error();
 }
 
-// P5: out (1,) float32 = the in-order sum of xs (n,) float32.
+// P5: out (1,) float32 = the in-order sum of xs (n,) float32; one warp.
 extern "C" int slam_probe_scalar_sum(const void* xs, int n, void* out,
                                      void* stream) {
-  scalar_sum_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const float*)xs, n,
-                                                       (float*)out);
+  scalar_sum_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const float*)xs, n,
+                                                        (float*)out);
   return last_error();
 }
 

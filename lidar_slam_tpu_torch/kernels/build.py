@@ -137,8 +137,8 @@ def library() -> ctypes.CDLL:
 def cuda_raw():
     """(get_device, raw_stream): get_device() is the current device's index
     and raw_stream(index) the handle of that device's current stream, as
-    int, from torch's private bindings (RAW_CUDA). The wrappers call them
-    on every launch: torch.cuda.current_stream(i).cuda_stream builds a
+    int, from torch's private bindings (RAW_CUDA). Entry calls them on
+    every launch: torch.cuda.current_stream(i).cuda_stream builds a
     torch.cuda.Stream object each time, which costs host time. Private
     names can change between torch releases, so this is the one place that
     reads them: it raises, naming what is missing, where this torch lacks
@@ -151,3 +151,34 @@ def cuda_raw():
             f"{' and '.join(RAW_CUDA)} (a CUDA build of torch that still "
             f"has them)")
     return tuple(getattr(torch._C, name) for name in RAW_CUDA)
+
+
+class Entry:
+    """One C entry point of the library, as every kernel wrapper launches
+    it: entry(index, *args) calls it with args and the raw handle of the
+    current stream of device `index` (the tensors' t.get_device()), and
+    raises if it returns a CUDA error.
+
+    The entry point and cuda_raw's two readers are bound at the first
+    launch, not on every call; a launch on the current device is then two
+    calls into torch's C bindings and the ctypes call. The current device
+    is switched (torch.cuda.device) only for tensors on another one."""
+
+    __slots__ = ("name", "_fn", "_get_device", "_raw_stream")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._fn = None
+
+    def __call__(self, index: int, *args) -> None:
+        if self._fn is None:
+            self._fn = getattr(library(), self.name)
+            self._get_device, self._raw_stream = cuda_raw()
+        if index == self._get_device():
+            rc = self._fn(*args, self._raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                rc = self._fn(*args, self._raw_stream(index))
+        if rc:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {rc}")

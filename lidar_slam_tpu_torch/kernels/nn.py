@@ -37,34 +37,31 @@ def nn_argmin(src: torch.Tensor, tgt: torch.Tensor,
     if tgt.shape[0] != B or tgt.shape[2] != D or D not in (2, 3):
         raise ValueError(f"shape mismatch: src {tuple(src.shape)}, "
                          f"tgt {tuple(tgt.shape)} (D must be 2 or 3)")
-    if src.dtype != torch.float32 or tgt.dtype != torch.float32:
+    if src.dtype is not torch.float32 or tgt.dtype is not torch.float32:
         raise ValueError(f"nn_argmin kernel takes float32, got {src.dtype}, "
                          f"{tgt.dtype}")
     if M == 0:
         raise ValueError("nn_argmin needs at least one target point")
     if tgt_mask is None:
         tgt_mask = torch.ones((B, M), dtype=torch.bool, device=src.device)
-    if tgt_mask.shape != (B, M) or tgt_mask.dtype != torch.bool:
+    if tgt_mask.shape != (B, M) or tgt_mask.dtype is not torch.bool:
         raise ValueError(f"tgt_mask must be ({B}, {M}) bool")
-    if not (tgt.device == src.device == tgt_mask.device):
+    index = src.get_device()
+    if not (tgt.get_device() == index == tgt_mask.get_device()):
         raise ValueError("src, tgt and tgt_mask must be on one device")
     if not (src.is_contiguous() and tgt.is_contiguous()
             and tgt_mask.is_contiguous()):
         raise ValueError("src, tgt and tgt_mask must be contiguous")
-    idx = torch.empty((B, N), dtype=torch.int32, device=src.device)
-    matched = torch.empty((B, N, D), dtype=torch.float32, device=src.device)
-    lib = build.library()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.slam_nn_argmin(src.data_ptr(), tgt.data_ptr(),
-                                tgt_mask.data_ptr(), B, N, M, D,
-                                idx.data_ptr(), matched.data_ptr(), stream)
-        nn_argmin.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"nn_argmin kernel launch failed: CUDA error {rc}")
+    dev = src.device
+    idx = torch.empty((B, N), dtype=torch.int32, device=dev)
+    matched = torch.empty((B, N, D), dtype=torch.float32, device=dev)
+    _NN_ARGMIN(index, src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(), B,
+               N, M, D, idx.data_ptr(), matched.data_ptr())
+    nn_argmin.launches += 1
     return idx, matched
 
 
+_NN_ARGMIN = build.Entry("slam_nn_argmin")
 nn_argmin.launches = 0
 
 

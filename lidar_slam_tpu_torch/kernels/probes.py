@@ -31,44 +31,40 @@ TS, LANES = 8, 128  # the TPU tile of P1-P4, P7, P8
 VPU_TS = 64  # P9's (64, 128) tile
 VPU_MODES = ("rmw", "vec", "full", "fullv", "ray1", "ray2")
 RAY_W_MAX = 4096  # ray modes index the word table at i & (ray_w - 1)
+ONES_EXACT = 1 << 24  # float32 counts 1.0 + 1.0 + ... exactly up to 2^24
+
+# the C entry points of csrc/probes.cu, one a wrapper
+_SMEM_STREAM = build.Entry("slam_probe_smem_stream")
+_DYNAMIC_STORE = build.Entry("slam_probe_dynamic_store")
+_DYNAMIC_LANE_STORE = build.Entry("slam_probe_dynamic_lane_store")
+_MASKED_TILE = build.Entry("slam_probe_masked_tile")
+_SCALAR_SUM = build.Entry("slam_probe_scalar_sum")
+_FILL = build.Entry("slam_probe_fill")
+_TILE_RMW = build.Entry("slam_probe_tile_rmw")
+_SEGMENT_RMW = build.Entry("slam_probe_segment_rmw")
+_VPU_LOOP = build.Entry("slam_probe_vpu_loop")
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int,
-           device: torch.device) -> None:
-    if t.dtype != dtype or t.dim() != dim or t.device != device:
+           index: int) -> None:
+    """Raise unless t is a contiguous dim-D dtype tensor on CUDA device
+    `index` (cheap attributes only: no torch.device object is built)."""
+    if t.dtype is not dtype or t.dim() != dim or t.get_device() != index:
         raise ValueError(f"{name} must be a {dim}-D {dtype} tensor on "
-                         f"{device}, got {tuple(t.shape)} {t.dtype} "
+                         f"cuda:{index}, got {tuple(t.shape)} {t.dtype} "
                          f"{t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_pairs(xs: torch.Tensor, ys: torch.Tensor) -> None:
-    _check("xs", xs, torch.int32, 1, xs.device)
-    _check("ys", ys, torch.int32, 1, xs.device)
-    if len(xs) != len(ys):
+def _check_pairs(xs: torch.Tensor, ys: torch.Tensor) -> int:
+    """Check xs and ys as (n,) int32 on xs's device; returns its index."""
+    index = xs.get_device()
+    _check("xs", xs, torch.int32, 1, index)
+    _check("ys", ys, torch.int32, 1, index)
+    if xs.shape[0] != ys.shape[0]:
         raise ValueError("xs and ys must have one length")
-
-
-def _launch(wrapper, entry: str, device: torch.device, *args) -> None:
-    """Call the C entry point on the current stream of `device` (an index-
-    less device is the current one); count the launch on `wrapper` and
-    raise if it was refused. The stream is fetched raw (build.cuda_raw),
-    with no torch.cuda.Stream object, and the current device is switched
-    only when `device` is another one (both cost host time on every
-    call)."""
-    fn = getattr(build.library(), entry)
-    get_device, raw_stream = build.cuda_raw()
-    current = get_device()  # the caller's tensors set CUDA up
-    index = current if device.index is None else device.index
-    if index == current:
-        rc = fn(*args, raw_stream(index))
-    else:
-        with torch.cuda.device(index):
-            rc = fn(*args, raw_stream(index))
-    wrapper.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return index
 
 
 def _flat_adds(shape, rows: torch.Tensor, cols: torch.Tensor, vals):
@@ -128,10 +124,12 @@ def smem_stream(xs: torch.Tensor) -> torch.Tensor:
     xs[i] added for every i in order. xs (n,) float32."""
     if not xs.is_cuda:
         return smem_stream_plain(xs)
-    _check("xs", xs, torch.float32, 1, xs.device)
+    index = xs.get_device()
+    _check("xs", xs, torch.float32, 1, index)
     out = torch.empty(PROBE_SHAPE, dtype=torch.float32, device=xs.device)
-    _launch(smem_stream, "slam_probe_smem_stream", xs.device, xs.data_ptr(),
-            xs.shape[0], out.data_ptr(), *PROBE_SHAPE)
+    _SMEM_STREAM(index, xs.data_ptr(), xs.shape[0], out.data_ptr(),
+                 *PROBE_SHAPE)
+    smem_stream.launches += 1
     return out
 
 
@@ -157,10 +155,12 @@ def dynamic_store(xs: torch.Tensor) -> torch.Tensor:
     x8 = floor(x / 8) * 8. xs (n,) int32."""
     if not xs.is_cuda:
         return dynamic_store_plain(xs)
-    _check("xs", xs, torch.int32, 1, xs.device)
+    index = xs.get_device()
+    _check("xs", xs, torch.int32, 1, index)
     out = torch.empty(PROBE_SHAPE, dtype=torch.float32, device=xs.device)
-    _launch(dynamic_store, "slam_probe_dynamic_store", xs.device,
-            xs.data_ptr(), xs.shape[0], out.data_ptr(), *PROBE_SHAPE)
+    _DYNAMIC_STORE(index, xs.data_ptr(), xs.shape[0], out.data_ptr(),
+                   *PROBE_SHAPE)
+    dynamic_store.launches += 1
     return out
 
 
@@ -183,16 +183,44 @@ def dynamic_lane_store_plain(xs: torch.Tensor,
                          *dynamic_lane_store_cells(xs, ys))
 
 
+def ones_fold(k: torch.Tensor) -> torch.Tensor:
+    """S_k, the k-fold in-order float32 sum of 1.0 from +0.0, for integer
+    counts k >= 0: float32 holds every integer up to 2^24 and 2^24 + 1.0
+    rounds back to 2^24 (to even), so S_k = min(k, 2^24), exactly."""
+    return k.clamp(max=ONES_EXACT).to(torch.float32)
+
+
+def dynamic_lane_store_design(xs: torch.Tensor,
+                              ys: torch.Tensor) -> torch.Tensor:
+    """P3 by its kernel's design: every add is +1.0 to the whole (8, 128)
+    tile (floor(x / 8), floor(y / 128)) of a zero grid, so each cell holds
+    S_k of its tile's hit count k, whatever the order of the entries. The
+    kernel gives each tile position a block, whose threads count its hits
+    among all entries in integers (a warp shuffle, then shared memory) and
+    write S_k (ones_fold) to its cells once. Entries whose tile lies off
+    the grid count for no tile."""
+    W, H = PROBE_SHAPE
+    TX, TY = -(-W // TS), -(-H // LANES)
+    tx = torch.div(xs.long(), TS, rounding_mode="floor")
+    ty = torch.div(ys.long(), LANES, rounding_mode="floor")
+    on = (tx >= 0) & (tx < TX) & (ty >= 0) & (ty < TY)
+    count = torch.bincount((tx * TY + ty)[on], minlength=TX * TY)
+    tiles = ones_fold(count).view(TX, 1, TY, 1).expand(TX, TS, TY, LANES)
+    return tiles.reshape(TX * TS, TY * LANES)[:W, :H].contiguous()
+
+
 def dynamic_lane_store(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     """P3: as P2 on the tile at lane offset yl = floor(y / 128) * 128.
-    xs, ys (n,) int32."""
+    xs, ys (n,) int32. On the card: a block of 1,024 threads for each
+    (8, 128) tile position of the grid, counting its hits in integers and
+    writing each cell once (dynamic_lane_store_design; csrc/probes.cu)."""
     if not xs.is_cuda:
         return dynamic_lane_store_plain(xs, ys)
-    _check_pairs(xs, ys)
+    index = _check_pairs(xs, ys)
     out = torch.empty(PROBE_SHAPE, dtype=torch.float32, device=xs.device)
-    _launch(dynamic_lane_store, "slam_probe_dynamic_lane_store", xs.device,
-            xs.data_ptr(), ys.data_ptr(), len(xs), out.data_ptr(),
-            *PROBE_SHAPE)
+    _DYNAMIC_LANE_STORE(index, xs.data_ptr(), ys.data_ptr(), xs.shape[0],
+                        out.data_ptr(), *PROBE_SHAPE)
+    dynamic_lane_store.launches += 1
     return out
 
 
@@ -216,10 +244,11 @@ def masked_tile(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     as a masked (8, 128) tile RMW). xs, ys (n,) int32."""
     if not xs.is_cuda:
         return masked_tile_plain(xs, ys)
-    _check_pairs(xs, ys)
+    index = _check_pairs(xs, ys)
     out = torch.empty(PROBE_SHAPE, dtype=torch.float32, device=xs.device)
-    _launch(masked_tile, "slam_probe_masked_tile", xs.device, xs.data_ptr(),
-            ys.data_ptr(), len(xs), -LOG4, out.data_ptr(), *PROBE_SHAPE)
+    _MASKED_TILE(index, xs.data_ptr(), ys.data_ptr(), xs.shape[0], -LOG4,
+                 out.data_ptr(), *PROBE_SHAPE)
+    masked_tile.launches += 1
     return out
 
 
@@ -240,13 +269,15 @@ def scalar_sum_plain(xs: torch.Tensor) -> torch.Tensor:
 
 def scalar_sum(xs: torch.Tensor) -> torch.Tensor:
     """P5: the in-order float32 sum of xs (n,) float32, as a (1, 1)
-    tensor."""
+    tensor. On the card: one warp loads 32 entries at a time and folds
+    them in index order (csrc/probes.cu)."""
     if not xs.is_cuda:
         return scalar_sum_plain(xs)
-    _check("xs", xs, torch.float32, 1, xs.device)
+    index = xs.get_device()
+    _check("xs", xs, torch.float32, 1, index)
     out = torch.empty((1, 1), dtype=torch.float32, device=xs.device)
-    _launch(scalar_sum, "slam_probe_scalar_sum", xs.device, xs.data_ptr(),
-            xs.shape[0], out.data_ptr())
+    _SCALAR_SUM(index, xs.data_ptr(), xs.shape[0], out.data_ptr())
+    scalar_sum.launches += 1
     return out
 
 
@@ -266,8 +297,8 @@ def full_grid(device) -> torch.Tensor:
     if device.type != "cuda":
         return full_grid_plain(device)
     out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=device)
-    _launch(full_grid, "slam_probe_fill", out.device, out.data_ptr(),
-            out.numel(), 1.0)
+    _FILL(out.get_device(), out.data_ptr(), out.numel(), 1.0)
+    full_grid.launches += 1
     return out
 
 
@@ -384,18 +415,19 @@ def tile_rmw(xs: torch.Tensor, ys: torch.Tensor,
     torch.empty; tile_rmw.launches counts one a call."""
     if not xs.is_cuda:
         return tile_rmw_plain(xs, ys, vs)
+    index = xs.get_device()
     for name, t, dt in (("xs", xs, torch.int32), ("ys", ys, torch.int32),
                         ("vs", vs, torch.float32)):
-        _check(name, t, dt, 1, xs.device)
+        _check(name, t, dt, 1, index)
     u = xs.shape[0]
     if not u == ys.shape[0] == vs.shape[0]:
         raise ValueError("xs, ys and vs must have one length")
     out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=xs.device)
     nbytes = _tile_rmw_scratch(u)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=xs.device)
-    _launch(tile_rmw, "slam_probe_tile_rmw", xs.device, xs.data_ptr(),
-            ys.data_ptr(), vs.data_ptr(), u, out.data_ptr(), *GRID_SHAPE,
-            scratch.data_ptr(), nbytes)
+    _TILE_RMW(index, xs.data_ptr(), ys.data_ptr(), vs.data_ptr(), u,
+              out.data_ptr(), *GRID_SHAPE, scratch.data_ptr(), nbytes)
+    tile_rmw.launches += 1
     return out
 
 
@@ -450,15 +482,16 @@ def segment_rmw(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,
     csrc/probes.cu); segment_rmw.launches counts one a call."""
     if not x8.is_cuda:
         return segment_rmw_plain(x8, yl, a, b)
+    index = x8.get_device()
     for name, t in (("x8", x8), ("yl", yl), ("a", a), ("b", b)):
-        _check(name, t, torch.int32, 1, x8.device)
+        _check(name, t, torch.int32, 1, index)
     n = x8.shape[0]
     if not n == yl.shape[0] == a.shape[0] == b.shape[0]:
         raise ValueError("x8, yl, a and b must have one length")
     out = torch.empty(GRID_SHAPE, dtype=torch.float32, device=x8.device)
-    _launch(segment_rmw, "slam_probe_segment_rmw", x8.device, x8.data_ptr(),
-            yl.data_ptr(), a.data_ptr(), b.data_ptr(), n, -LOG4,
-            out.data_ptr(), *GRID_SHAPE)
+    _SEGMENT_RMW(index, x8.data_ptr(), yl.data_ptr(), a.data_ptr(),
+                 b.data_ptr(), n, -LOG4, out.data_ptr(), *GRID_SHAPE)
+    segment_rmw.launches += 1
     return out
 
 
@@ -701,12 +734,12 @@ def vpu_loop(words: torch.Tensor, grid: torch.Tensor, n_pairs: int,
     _vpu_check(words, grid, n_pairs, mode, reps)
     if not grid.is_cuda:
         return vpu_loop_plain(words, grid, n_pairs, mode, reps)
-    dev = grid.device
-    _check("grid", grid, torch.float32, 2, dev)
-    _check("words", words, torch.int32, 2, dev)
-    _launch(vpu_loop, "slam_probe_vpu_loop", dev, words.data_ptr(),
-            words.shape[1], n_pairs, VPU_MODES.index(mode), reps, LOG4,
-            grid.data_ptr(), *grid.shape)
+    index = grid.get_device()
+    _check("grid", grid, torch.float32, 2, index)
+    _check("words", words, torch.int32, 2, index)
+    _VPU_LOOP(index, words.data_ptr(), words.shape[1], n_pairs,
+              VPU_MODES.index(mode), reps, LOG4, grid.data_ptr(), *grid.shape)
+    vpu_loop.launches += 1
     return grid
 
 

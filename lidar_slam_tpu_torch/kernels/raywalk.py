@@ -27,6 +27,9 @@ OWNER_SIDE = 16  # cells a side of raywalk_build's owners (the kernel's RB_SUB)
 BIN_CHUNK = 1024  # rays a warp bins, at the least
 TABLE_CAP = 1 << 25  # (owner, chunk) counts, at most about
 INT32_MAX = 2**31 - 1
+_RAYWALK_BIN = build.Entry("slam_raywalk_bin")  # count, then fill
+_RAYWALK_WALK = build.Entry("slam_raywalk_walk")
+_RAYWALK_SCAN = build.Entry("slam_raywalk_scan")
 
 
 def owner_grid(cfg: MapConfig, side: int) -> tuple[int, int]:
@@ -43,12 +46,13 @@ def bin_chunk(n_rays: int, n_owners: int) -> int:
 
 
 def _check_rays(ends: torch.Tensor, masks: torch.Tensor, K: int) -> None:
-    if ends.dim() != 3 or ends.shape[-1] != 4 or ends.dtype != torch.int32:
+    if (ends.dim() != 3 or ends.shape[-1] != 4
+            or ends.dtype is not torch.int32):
         raise ValueError(f"ends must be (N, R, 4) int32, got "
                          f"{tuple(ends.shape)} {ends.dtype}")
     N, R = ends.shape[:2]
-    if (masks.shape != (N, R) or masks.dtype != torch.bool
-            or masks.device != ends.device):
+    if (masks.shape != (N, R) or masks.dtype is not torch.bool
+            or masks.get_device() != ends.get_device()):
         raise ValueError(f"masks must be ({N}, {R}) bool on {ends.device}, "
                          f"got {tuple(masks.shape)} {masks.dtype} "
                          f"{masks.device}")
@@ -88,29 +92,21 @@ def raywalk_bins(ends: torch.Tensor, masks: torch.Tensor, cfg: MapConfig,
     n_chunks = -(-n_rays // chunk)
     table = torch.zeros((n_owners, n_chunks), dtype=torch.int32,
                         device=ends.device)
-    lib = build.library()
-    with torch.cuda.device(ends.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        args = (ends.data_ptr(), masks.data_ptr(), n_rays, cfg.width,
-                cfg.height, int(K), chunk, n_chunks)
-        rc = lib.slam_raywalk_bin(*args, table.data_ptr(), None, stream)
-        if rc != 0:
-            raise RuntimeError(f"raywalk_bin count launch failed: CUDA "
-                               f"error {rc}")
-        counts = table.view(-1)
-        total = int(counts.sum(dtype=torch.int64))  # a build's one host sync
-        if total > INT32_MAX:
-            raise ValueError(f"{total} ray-owner crossings: list positions "
-                             f"must fit in int32")
-        table = (counts.cumsum(0, dtype=torch.int32) - counts).view(
-            n_owners, n_chunks)
-        bounds[:-1] = table[:, 0]
-        bounds[-1] = total
-        entries = torch.empty(total, dtype=torch.int32, device=ends.device)
-        rc = lib.slam_raywalk_bin(*args, table.data_ptr(),
-                                  entries.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"raywalk_bin fill launch failed: CUDA error {rc}")
+    index = ends.get_device()
+    args = (ends.data_ptr(), masks.data_ptr(), n_rays, cfg.width, cfg.height,
+            int(K), chunk, n_chunks)
+    _RAYWALK_BIN(index, *args, table.data_ptr(), None)  # count
+    counts = table.view(-1)
+    total = int(counts.sum(dtype=torch.int64))  # a build's one host sync
+    if total > INT32_MAX:
+        raise ValueError(f"{total} ray-owner crossings: list positions "
+                         f"must fit in int32")
+    table = (counts.cumsum(0, dtype=torch.int32) - counts).view(
+        n_owners, n_chunks)
+    bounds[:-1] = table[:, 0]
+    bounds[-1] = total
+    entries = torch.empty(total, dtype=torch.int32, device=ends.device)
+    _RAYWALK_BIN(index, *args, table.data_ptr(), entries.data_ptr())  # fill
     return bounds, entries
 
 
@@ -191,23 +187,17 @@ def raywalk_build(ends: torch.Tensor, masks: torch.Tensor, cfg: MapConfig,
     if init is None:
         grid = torch.zeros((W, H), dtype=torch.float32, device=ends.device)
     else:
-        if (init.shape != (W, H) or init.dtype != torch.float32
-                or init.device != ends.device):
+        if (init.shape != (W, H) or init.dtype is not torch.float32
+                or init.get_device() != ends.get_device()):
             raise ValueError(f"init must be ({W}, {H}) float32 on "
                              f"{ends.device}")
         grid = init.clone()
     bounds, entries = raywalk_bins(ends, masks, cfg, K)
-    lib = build.library()
-    with torch.cuda.device(ends.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.slam_raywalk_walk(
-            ends.data_ptr(), bounds.data_ptr(), entries.data_ptr(), N, R, W,
-            H, int(K), float(cfg.logodds_ratio),
-            float(cfg.logodds_clip), grid.data_ptr(), stream)
-        raywalk_build.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"raywalk_build walk launch failed: CUDA error "
-                           f"{rc}")
+    _RAYWALK_WALK(ends.get_device(), ends.data_ptr(), bounds.data_ptr(),
+                  entries.data_ptr(), N, R, W, H, int(K),
+                  float(cfg.logodds_ratio), float(cfg.logodds_clip),
+                  grid.data_ptr())
+    raywalk_build.launches += 1
     return grid
 
 
@@ -231,16 +221,18 @@ def raywalk_scan(ends: torch.Tensor, mask: torch.Tensor, cfg: MapConfig,
             grid.clamp_(-clip, clip)
         return grid
     W, H = cfg.width, cfg.height
-    if ends.dim() != 2 or ends.shape[-1] != 4 or ends.dtype != torch.int32:
+    if (ends.dim() != 2 or ends.shape[-1] != 4
+            or ends.dtype is not torch.int32):
         raise ValueError(f"ends must be (R, 4) int32, got "
                          f"{tuple(ends.shape)} {ends.dtype}")
     R = ends.shape[0]
-    if (mask.shape != (R,) or mask.dtype != torch.bool
-            or mask.device != ends.device):
+    index = ends.get_device()
+    if (mask.shape != (R,) or mask.dtype is not torch.bool
+            or mask.get_device() != index):
         raise ValueError(f"mask must be ({R},) bool on {ends.device}, got "
                          f"{tuple(mask.shape)} {mask.dtype} {mask.device}")
-    if (grid.shape != (W, H) or grid.dtype != torch.float32
-            or grid.device != ends.device):
+    if (grid.shape != (W, H) or grid.dtype is not torch.float32
+            or grid.get_device() != index):
         raise ValueError(f"grid must be ({W}, {H}) float32 on {ends.device}, "
                          f"got {tuple(grid.shape)} {grid.dtype} "
                          f"{grid.device}")
@@ -249,17 +241,11 @@ def raywalk_scan(ends: torch.Tensor, mask: torch.Tensor, cfg: MapConfig,
         raise ValueError("ends, mask and grid must be contiguous")
     if K <= 0:
         raise ValueError(f"K must be positive, got {K}")
-    lib = build.library()
-    with torch.cuda.device(ends.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.slam_raywalk_scan(
-            ends.data_ptr(), mask.data_ptr(), R, W, H, int(K),
-            float(cfg.logodds_ratio), 0.0 if clip is None else float(clip),
-            int(clip is not None), grid.data_ptr(), stream)
-        raywalk_scan.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"raywalk_scan kernel launch failed: CUDA error "
-                           f"{rc}")
+    _RAYWALK_SCAN(index, ends.data_ptr(), mask.data_ptr(), R, W, H, int(K),
+                  float(cfg.logodds_ratio),
+                  0.0 if clip is None else float(clip), int(clip is not None),
+                  grid.data_ptr())
+    raywalk_scan.launches += 1
     return grid
 
 

@@ -541,6 +541,61 @@ def test_construct_probe_bit_exact(dev, name):
     _same_bits(got, pallas_probe.call(name, "cpu"))
 
 
+def _lane_store_entries(case: str, n: int):
+    """(xs, ys) CPU int32 tensors of one P3 case of n entries."""
+    rng = np.random.default_rng(n + 11)
+    W, H = probes.PROBE_SHAPE
+    if case == "off_grid":  # negative and past the grid on every side
+        return _int32(rng, -40, W + 40, n), _int32(rng, -400, H + 400, n)
+    xs, ys = _int32(rng, 0, W, n), _int32(rng, 0, H, n)
+    if case == "hot_tile":  # seven in eight entries on tile (5, 1)
+        hot = torch.as_tensor(rng.random(n) < 7 / 8)
+        xs[hot] = _int32(rng, 40, 48, int(hot.sum()))
+        ys[hot] = _int32(rng, 128, 256, int(hot.sum()))
+    if case == "saturated":  # every entry on tile (2, 0): S_k = 2^24
+        xs, ys = _int32(rng, 16, 24, n), _int32(rng, 0, 128, n)
+    return xs, ys
+
+
+@pytest.mark.parametrize("case,n", [
+    ("random", 0), ("random", 1), ("random", 64), ("random", 1000),
+    ("random", 100_000), ("hot_tile", 65_536), ("off_grid", 5000),
+    ("saturated", 2**24 + 5),
+])
+def test_dynamic_lane_store_bit_exact(dev, case, n):
+    """P3's counting kernel against its design (and its plain version,
+    one tile add an entry, up to 5,000 entries), bit for bit: no entries,
+    a hot tile, entries off the grid on every side, and a tile hit more
+    than 2^24 times, where the float32 fold of 1.0 stops at 2^24."""
+    xs, ys = _lane_store_entries(case, n)
+    before = probes.dynamic_lane_store.launches
+    got = probes.dynamic_lane_store(xs.to(dev), ys.to(dev))
+    torch.cuda.synchronize()
+    assert probes.dynamic_lane_store.launches == before + 1
+    want = probes.dynamic_lane_store_design(xs, ys)
+    _same_bits(got, want)
+    if n <= 5000:
+        _same_bits(got, probes.dynamic_lane_store_plain(xs, ys))
+    if case == "saturated":
+        assert float(want[16, 0]) == 2.0**24
+    assert bool(want.any()) == (n > 0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 64, 4096, 100_003])
+def test_scalar_sum_bit_exact(dev, n):
+    """P5's one-warp fold against the plain in-order loop on values whose
+    float32 sum depends on the order (signs and magnitudes 1e-3 to 1e8),
+    at lengths around and across its 32-entry chunks."""
+    rng = np.random.default_rng(n)
+    xs = torch.as_tensor(rng.choice([-1.0, 1.0], n)
+                         * 10.0 ** rng.uniform(-3, 8, n), dtype=torch.float32)
+    before = probes.scalar_sum.launches
+    got = probes.scalar_sum(xs.to(dev))
+    torch.cuda.synchronize()
+    assert probes.scalar_sum.launches == before + 1
+    _same_bits(got, probes.scalar_sum_plain(xs))
+
+
 def _int32(rng, lo, hi, n):
     return torch.as_tensor(rng.integers(lo, hi, n), dtype=torch.int32)
 
@@ -727,6 +782,51 @@ def test_full_grid_switches_no_device(dev, device, monkeypatch):
     torch.cuda.synchronize()
     assert probes.full_grid.launches == before + 1
     _same_bits(got, probes.full_grid("cpu"))
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_main_path_kernels_switch_no_device(dev, device, monkeypatch):
+    """K4, K1 (binning and walk) and K2 on tensors of the current device,
+    named with or without its index, launch through build.Entry: no
+    torch.cuda.device context is entered, and each equals its plain
+    version on the CPU."""
+    cfg = MapConfig(resolution=0.1, world_max_x=6, world_min_x=-6,
+                    world_max_y=6, world_min_y=-6)
+    poses, pts, masks = _scans(5, 3, 200, 9.0, cfg)
+    k = occupancy.max_ray_cells(cfg, 9.0)
+    ends = occupancy.ray_ends(poses, pts, cfg)
+    g = torch.Generator().manual_seed(3)
+    src, tgt = torch.randn((1, 300, 3), generator=g), torch.randn(
+        (1, 400, 3), generator=g)
+    mask = torch.rand((1, 400), generator=g) > 0.3
+    grid = torch.as_tensor(np.random.default_rng(2).uniform(
+        -25, 25, (cfg.width, cfg.height)), dtype=torch.float32)
+    on = [t.to(device) for t in (src, tgt, mask, ends, masks, grid)]
+    entered = []
+
+    class Recording(torch.cuda.device):
+        def __init__(self, device):
+            entered.append(device)
+            super().__init__(device)
+
+    torch.cuda.set_device(0)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch.cuda, "device", Recording)
+    counts = [f.launches for f in (nn_argmin, raywalk_build, raywalk_scan)]
+    idx, matched = nn_argmin(*on[:3])
+    built = raywalk_build(on[3], on[4], cfg, k)
+    raywalk_scan(on[3][0], on[4][0], cfg, k, on[5], 20.0)
+    assert not entered  # (torch.cuda.synchronize enters one itself)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert [f.launches for f in (nn_argmin, raywalk_build, raywalk_scan)] \
+        == [c + 1 for c in counts]
+    want_idx, want_matched = nn_argmin_rounded(*on[:3])
+    assert torch.equal(idx, want_idx) and torch.equal(matched, want_matched)
+    assert torch.equal(built.cpu(),
+                       occupancy.build_logodds_scatter(ends, masks, cfg, k))
+    assert torch.equal(on[5].cpu(), raywalk_scan(ends[0], masks[0], cfg, k,
+                                                 grid.clone(), 20.0))
 
 
 @pytest.mark.parametrize("offset,n", [(0, 1_000_003), (1, 1_000_001),

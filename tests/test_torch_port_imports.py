@@ -2,6 +2,7 @@
 the JAX package's config, sensor and IO code give identical values, and its
 kernel build is keyed on every file of its CUDA sources."""
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -155,6 +156,108 @@ def test_cuda_raw_returns_the_bindings(monkeypatch):
         assert raw_stream(get_device()) == 1003
     finally:
         build.cuda_raw.cache_clear()
+
+
+def _calls(tree):
+    """(dotted callee, enclosing function) of every call in a module."""
+    out = []
+
+    def visit(node, where):
+        for child in ast.iter_child_nodes(node):
+            inner = where
+            if isinstance(child, (ast.FunctionDef, ast.ClassDef)):
+                inner = f"{where}.{child.name}" if where else child.name
+            if isinstance(child, ast.Call):
+                out.append((ast.unparse(child.func), inner))
+            visit(child, inner)
+
+    visit(tree, "")
+    return out
+
+
+def test_kernel_wrappers_launch_through_build_entry():
+    """No module under kernels/ fetches a stream object or enters a device
+    context to launch: every wrapper launches through build.Entry, which
+    enters torch.cuda.device only for tensors on another device, and
+    torch's private CUDA bindings are read only in build.cuda_raw."""
+    from lidar_slam_tpu_torch.kernels import build
+
+    device_calls, entries = [], set()
+    for path in sorted((build.PKG_DIR / "kernels").glob("*.py")):
+        src = path.read_text()
+        for callee, where in _calls(ast.parse(src)):
+            assert not callee.endswith("current_stream"), (path.name, where)
+            assert "cuda_stream" not in callee, (path.name, where)
+            if callee == "torch.cuda.device":
+                device_calls.append((path.name, where))
+            if callee in ("build.Entry", "Entry"):
+                entries.add(path.name)
+        assert "_cuda_get" not in src or path.name == "build.py", path.name
+    assert device_calls == [("build.py", "Entry.__call__")]
+    assert entries == {"nn.py", "probes.py", "raywalk.py"}
+
+
+class _FakeLibrary:
+    """A kernel library whose entry points record their arguments."""
+
+    def __init__(self, rc=0):
+        self.calls = []
+        self.rc = rc
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.rc
+        return entry
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """build.library() and build.cuda_raw() faked (current device 0, the
+    raw stream of device i is 1000 + i); torch.cuda.device records the
+    devices it is entered with."""
+    from lidar_slam_tpu_torch.kernels import build
+
+    lib, entered = _FakeLibrary(), []
+
+    class Recording:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "cuda_raw",
+                        lambda: (lambda: 0, lambda index: 1000 + index))
+    monkeypatch.setattr(torch.cuda, "device", Recording)
+    return build, lib, entered
+
+
+@pytest.mark.parametrize("index,switched", [(0, []), (2, [2])])
+def test_entry_switches_device_only_for_another(fake_cuda, index, switched):
+    """Entry calls its C entry point with the arguments and the raw stream
+    of the tensors' device, binds it once, and enters torch.cuda.device
+    only when that device is not the current one."""
+    build, lib, entered = fake_cuda
+    entry = build.Entry("slam_probe_fill")
+    entry(index, 11, 22)
+    entry(index, 33, 44)
+    assert lib.calls == [("slam_probe_fill", (11, 22, 1000 + index)),
+                         ("slam_probe_fill", (33, 44, 1000 + index))]
+    assert entered == switched * 2
+
+
+def test_entry_raises_on_a_refused_launch(fake_cuda):
+    """A CUDA error returned by the C entry point raises, naming it."""
+    build, lib, _ = fake_cuda
+    lib.rc = 9
+    with pytest.raises(RuntimeError, match="slam_nn_argmin kernel launch "
+                                           "failed: CUDA error 9"):
+        build.Entry("slam_nn_argmin")(0, 1)
 
 
 def _dataclasses(mod):

@@ -111,6 +111,118 @@ def test_pallas_probe_bit_exact(jax_pallas_probe, name):
     assert np.count_nonzero(want) > 0
 
 
+def _jax_probe(tools_env, name, inputs, ch=tpp.CH):
+    """The JAX tool's probe `name` run in interpret mode on `inputs` in
+    place of its own, with its per-step entry count CH set to `ch` (its
+    kernels loop over CH entries a grid step)."""
+    mp, _, load = tools_env
+    tool = load("pallas_probe")
+    recording = pl.pallas_call
+
+    def on_inputs(kernel, *args, **kwargs):
+        fn = recording(kernel, *args, **kwargs)
+        return lambda *_: fn(*[jax.numpy.asarray(a) for a in inputs])
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tool, "CH", ch)
+        m.setattr(pl, "pallas_call", on_inputs)
+        return np.asarray(getattr(tool, name)())
+
+
+def _lane_store_entries(case: str):
+    """(xs, ys) int32 arrays of one P3 case."""
+    W, H = probes.PROBE_SHAPE
+    rng = np.random.default_rng(12)
+    if case == "tool":
+        return tpp.inputs("v3_dynamic_lane_store")
+    if case == "hot_tile":  # 3,000 of 4,096 entries on tile (5, 1)
+        xs = rng.integers(0, W, 4096).astype(np.int32)
+        ys = rng.integers(0, H, 4096).astype(np.int32)
+        hot = rng.choice(4096, 3000, replace=False)
+        xs[hot] = rng.integers(40, 48, 3000)
+        ys[hot] = rng.integers(128, 256, 3000)
+        return xs, ys
+    if case == "off_grid":  # negative and past the grid in both axes
+        return (rng.integers(-40, W + 40, 2000).astype(np.int32),
+                rng.integers(-400, H + 400, 2000).astype(np.int32))
+    return np.zeros(0, np.int32), np.zeros(0, np.int32)
+
+
+@pytest.mark.parametrize("case", ["tool", "hot_tile", "off_grid", "empty"])
+def test_dynamic_lane_store_design_equals_plain(case):
+    """P3's kernel design (a hit count a tile, S_k written once) is its
+    plain version (one +1.0 tile add an entry, in order), bit for bit:
+    on the tool's entries, a hot tile, entries off the grid on every side
+    (dropped by the same floor division) and none."""
+    xs, ys = map(torch.from_numpy, _lane_store_entries(case))
+    want = probes.dynamic_lane_store_plain(xs, ys)
+    _bits_equal(probes.dynamic_lane_store_design(xs, ys), want.numpy())
+    inside = int(((xs >= 0) & (xs < 64) & (ys >= 0) & (ys < 256)).sum())
+    assert float(want.sum()) == 1024 * inside
+    if case == "hot_tile":
+        assert float(want[40, 128]) >= 3000
+
+
+@pytest.mark.parametrize("case", ["tool", "hot_tile"])
+def test_dynamic_lane_store_design_equals_jax(tools_env, case):
+    """P3's kernel design against the JAX tool's v3 in interpret mode, on
+    the tool's 64 entries and on 4,096 entries with 3,000 on one tile (the
+    tool's kernel then steps through 2,048 entries a grid step)."""
+    xs, ys = _lane_store_entries(case)
+    want = _jax_probe(tools_env, "v3_dynamic_lane_store", (xs, ys),
+                      len(xs) // 2)
+    got = probes.dynamic_lane_store_design(torch.from_numpy(xs),
+                                           torch.from_numpy(ys))
+    _bits_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def ones_folds():
+    """S_k for k = 0 .. 2^25: the sequential float32 fold of 1.0 (numpy's
+    add.accumulate adds in order, in float32)."""
+    s = np.ones(2**25 + 1, np.float32)
+    s[0] = 0.0
+    return np.add.accumulate(s, dtype=np.float32)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2**24 - 1, 2**24, 2**24 + 1, 2**25])
+def test_ones_fold_is_the_sequential_fold(ones_folds, k):
+    """The closed form P3's kernel writes, min(k, 2^24), is the k-fold
+    in-order float32 sum of 1.0 (the plain version's adds)."""
+    got = probes.ones_fold(torch.tensor([k]))
+    assert got.dtype == torch.float32
+    assert got.numpy().view(np.int32)[0] == ones_folds[k:k + 1].view(
+        np.int32)[0]
+    assert float(got[0]) == min(k, 2**24)
+
+
+def _order_sensitive(case: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(13)
+    if case == "alternating":  # 1e8 + 1 rounds to 1e8: the fold gives 1.0
+        return np.tile(np.float32([1e8, 1.0, -1e8, 1.0]), n // 4)
+    if case == "mixed":  # signs and magnitudes from 1e-3 to 1e8
+        return (rng.choice([-1.0, 1.0], n)
+                * 10.0 ** rng.uniform(-3, 8, n)).astype(np.float32)
+    return np.float32(rng.permutation(  # large values cancelling late
+        np.concatenate([np.full(n // 2, 3e7), np.full(n // 2, -3e7)])
+        + rng.uniform(-1, 1, n)))
+
+
+@pytest.mark.parametrize("case", ["alternating", "mixed", "cancelling"])
+@pytest.mark.parametrize("n", [32, 4096])
+def test_scalar_sum_equals_jax_in_order(tools_env, case, n):
+    """P5's plain version (the kernel's in-order fold) against the JAX
+    tool's v5 in interpret mode, on values whose float32 sum depends on
+    the order of the adds."""
+    xs = _order_sensitive(case, n)
+    want = _jax_probe(tools_env, "v5_vmem_scalar_read", (xs,), n)
+    _bits_equal(probes.scalar_sum(torch.from_numpy(xs)), want)
+    pairwise = float(torch.from_numpy(xs).sum())
+    assert want.shape == (1, 1)
+    if case == "alternating":
+        assert float(want[0, 0]) == 1.0 and pairwise != 1.0
+
+
 @pytest.fixture(scope="module")
 def jax_scatter(tools_env):
     return tools_env[2]("scatter_microbench")
@@ -263,7 +375,7 @@ def test_plain_adds_in_update_order():
 
 
 @pytest.mark.parametrize("tool", ["pallas_probe", "scatter_microbench",
-                                  "vpu_probe"])
+                                  "vpu_probe", "host_split"])
 def test_probe_tools_refuse_a_host_without_cuda(tool):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the refusal is not reachable")
