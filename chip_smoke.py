@@ -373,7 +373,10 @@ def probe_cases(dev) -> list:
         out_n = 1 if fn is probes.scalar_sum else int(np.prod(
             probes.GRID_SHAPE if fn is probes.full_grid
             else probes.PROBE_SHAPE))
-        ops = {probes.masked_tile: n, probes.scalar_sum: n,
+        # P3 tests each entry's tile once, in integers (no adds); P4 adds
+        # each entry into one cell; P1 and P2 add (8, 128) tiles
+        ops = {probes.dynamic_lane_store: n, probes.masked_tile: n,
+               probes.scalar_sum: n,
                probes.full_grid: 0}.get(fn, n * probes.TS * probes.LANES)
         library = {probes.scalar_sum: lambda g=g: g[0].sum(),
                    probes.full_grid: lambda: torch.ones(
@@ -393,7 +396,7 @@ def probe_cases(dev) -> list:
             (lambda g=g: g[0].sum()) if sums else adds_library(fn, g),
             sum(a.nbytes for a in arrays) + 4 * (1 if sums else int(
                 np.prod(probes.PROBE_SHAPE))),
-            n if sums else n * probes.TS * probes.LANES, 20, tag))
+            n, 20, tag))
     u = scatter_microbench.UPDATES[0]
     grid_bytes = 4 * int(np.prod(probes.GRID_SHAPE))
     for label, arrays, tag in [

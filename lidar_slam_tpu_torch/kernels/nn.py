@@ -63,6 +63,7 @@ def nn_argmin(src: torch.Tensor, tgt: torch.Tensor,
 
 _NN_ARGMIN = build.Entry("slam_nn_argmin")
 nn_argmin.launches = 0
+nn_argmin.entry = _NN_ARGMIN
 
 
 def nn_argmin_rounded(src: torch.Tensor, tgt: torch.Tensor,

@@ -134,6 +134,7 @@ def smem_stream(xs: torch.Tensor) -> torch.Tensor:
 
 
 smem_stream.launches = 0
+smem_stream.entry = _SMEM_STREAM
 smem_stream.plain = smem_stream_plain
 smem_stream.cells = smem_stream_cells
 smem_stream.shape = PROBE_SHAPE
@@ -165,6 +166,7 @@ def dynamic_store(xs: torch.Tensor) -> torch.Tensor:
 
 
 dynamic_store.launches = 0
+dynamic_store.entry = _DYNAMIC_STORE
 dynamic_store.plain = dynamic_store_plain
 dynamic_store.cells = dynamic_store_cells
 dynamic_store.shape = PROBE_SHAPE
@@ -225,6 +227,7 @@ def dynamic_lane_store(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
 
 
 dynamic_lane_store.launches = 0
+dynamic_lane_store.entry = _DYNAMIC_LANE_STORE
 dynamic_lane_store.plain = dynamic_lane_store_plain
 dynamic_lane_store.cells = dynamic_lane_store_cells
 dynamic_lane_store.shape = PROBE_SHAPE
@@ -253,6 +256,7 @@ def masked_tile(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
 
 
 masked_tile.launches = 0
+masked_tile.entry = _MASKED_TILE
 masked_tile.plain = masked_tile_plain
 masked_tile.cells = masked_tile_cells
 masked_tile.shape = PROBE_SHAPE
@@ -282,6 +286,7 @@ def scalar_sum(xs: torch.Tensor) -> torch.Tensor:
 
 
 scalar_sum.launches = 0
+scalar_sum.entry = _SCALAR_SUM
 scalar_sum.plain = scalar_sum_plain
 
 
@@ -303,6 +308,7 @@ def full_grid(device) -> torch.Tensor:
 
 
 full_grid.launches = 0
+full_grid.entry = _FILL
 full_grid.plain = full_grid_plain
 
 

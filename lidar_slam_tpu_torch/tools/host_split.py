@@ -5,18 +5,16 @@ its kernel (P5 spends about 0.0012 ms on an H100). This tool splits that
 path by the host clock, over calls that only enqueue (one synchronize
 after them; the median of ROUNDS rounds of REPS calls): the whole
 wrapper, its output allocation (torch.empty of what it returns), its C
-entry point through ctypes alone (pointers and stream computed before),
-and the rest, its Python (checks, the launch path). It also times the
-wrapper a call by CUDA events, and one PyTorch call of each kind the
-wrappers are timed against: `sum` (P5's library call), `index_add_` into
-a zero grid (P1-P4's) and `torch.ones` (P6's).
+entry point through ctypes alone, and the rest, its Python (checks, the
+launch path). The C entry is called with the very arguments and stream
+the wrapper passed it, recorded from one wrapper call through the
+wrapper's build.Entry (its .entry), so its argument list lives only in
+the wrapper. The tool also times the wrapper a call by CUDA events, and
+one PyTorch call of each kind the wrappers are timed against: `sum` (P5's
+library call), `index_add_` into a zero grid (P1-P4's) and `torch.ones`
+(P6's).
 
     python -m lidar_slam_tpu_torch.tools.host_split
-
-It uses only wrappers, inputs and C entry points that every version of the
-port since the probes has (kernels/probes.py, kernels/nn.py,
-tools/pallas_probe.py), so a copy of this file in an older checkout times
-that checkout's launch path the same way.
 """
 
 from __future__ import annotations
@@ -26,7 +24,7 @@ import time
 
 import torch
 
-from ..kernels import build, probes
+from ..kernels import probes
 from ..kernels.nn import nn_argmin
 from . import card, events_ms, pallas_probe, require_cuda, scatter_microbench
 
@@ -35,105 +33,89 @@ ROUNDS = 7  # rounds a measurement, its median kept (the host's noise)
 NN_B1 = (1, 1081, 1081)  # K4 on the online path: one scan pair
 
 
-def host_us(fn, reps: int = REPS) -> float:
-    """Host microseconds a call of fn: the median of ROUNDS rounds of reps
+def host_us(fn) -> float:
+    """Host microseconds a call of fn: the median of ROUNDS rounds of REPS
     calls that only enqueue (each after a synchronize, one after them)."""
     fn()
     rounds = []
     for _ in range(ROUNDS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(reps):
+        for _ in range(REPS):
             fn()
-        rounds.append((time.perf_counter() - t0) / reps * 1e6)
+        rounds.append((time.perf_counter() - t0) / REPS * 1e6)
     torch.cuda.synchronize()
     return statistics.median(rounds)
 
 
-def events_us(fn, reps: int = REPS) -> float:
+def events_us(fn) -> float:
     """Microseconds a call of fn by CUDA events: the median of ROUNDS
-    rounds of reps calls (after one call and a synchronize)."""
+    rounds of REPS calls (after one call and a synchronize)."""
     fn()
     torch.cuda.synchronize()
 
     def calls():
-        for _ in range(reps):
+        for _ in range(REPS):
             fn()
 
-    return statistics.median(events_ms(calls) / reps * 1e3
+    return statistics.median(events_ms(calls) / REPS * 1e3
                              for _ in range(ROUNDS))
 
 
-def _probe_parts(name: str, dev, stream: int):
-    """(wrapper call, allocation, C entry call) of probe `name` on the JAX
-    tool's inputs."""
-    fn = pallas_probe.KERNELS[name]
-    args = [torch.as_tensor(a, device=dev)
-            for a in pallas_probe.inputs(name)]
-    lib = build.library()
-    if fn is probes.full_grid:
-        out = fn(dev)
-        return (lambda: fn(dev),
-                lambda: torch.empty(probes.GRID_SHAPE, dtype=torch.float32,
-                                    device=dev),
-                lambda: lib.slam_probe_fill(out.data_ptr(), out.numel(), 1.0,
-                                            stream))
-    shape = (1, 1) if fn is probes.scalar_sum else probes.PROBE_SHAPE
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    p = [a.data_ptr() for a in args]
-    n = args[0].shape[0]
-    W, H = probes.PROBE_SHAPE
-    entry = {
-        probes.smem_stream: lambda: lib.slam_probe_smem_stream(
-            p[0], n, out.data_ptr(), W, H, stream),
-        probes.dynamic_store: lambda: lib.slam_probe_dynamic_store(
-            p[0], n, out.data_ptr(), W, H, stream),
-        probes.dynamic_lane_store: lambda: lib.slam_probe_dynamic_lane_store(
-            p[0], p[1], n, out.data_ptr(), W, H, stream),
-        probes.masked_tile: lambda: lib.slam_probe_masked_tile(
-            p[0], p[1], n, -probes.LOG4, out.data_ptr(), W, H, stream),
-        probes.scalar_sum: lambda: lib.slam_probe_scalar_sum(
-            p[0], n, out.data_ptr(), stream),
-    }[fn]
-    return (lambda: fn(*args),
-            lambda: torch.empty(shape, dtype=torch.float32, device=dev),
-            entry)
+def _parts(call, entry, dev):
+    """(allocation, C entry call) of a wrapper call that launches through
+    build.Entry `entry`: torch.empty of what the call returns, and the
+    entry's ctypes function on the arguments and stream that one call
+    passed it (which keeps that call's output alive)."""
+    call()  # binds the entry's ctypes function
+    fn, seen = entry._fn, []
+    entry._fn = lambda *args: seen.append(args) or fn(*args)
+    try:
+        out = call()
+    finally:
+        entry._fn = fn
+    (args,) = seen
+    if isinstance(out, torch.Tensor):
+        shape, dtype = out.shape, out.dtype
+
+        def empty():
+            return torch.empty(shape, dtype=dtype, device=dev)
+    else:
+        (s0, d0), (s1, d1) = ((o.shape, o.dtype) for o in out)
+
+        def empty():
+            return (torch.empty(s0, dtype=d0, device=dev),
+                    torch.empty(s1, dtype=d1, device=dev))
+
+    def alone(out=out):  # holds the output: the recorded pointers stay valid
+        return fn(*args)
+
+    return empty, alone
 
 
-def _nn_parts(dev, stream: int):
-    """(wrapper call, allocation, C entry call) of K4 at B = 1."""
+def split() -> dict:
+    """{label: {"call", "empty", "entry", "python"} host us, and "events"
+    us by CUDA events} for each P1-P6 wrapper (its name) and
+    "nn_argmin_b1", and under "library" {label: {"call", "events"}} of the
+    library calls."""
+    dev = torch.device("cuda")
+    calls = {}
+    for name, fn in pallas_probe.KERNELS.items():
+        args = [torch.as_tensor(a, device=dev)
+                for a in pallas_probe.inputs(name)] or [dev]
+        calls[fn.__name__] = (lambda fn=fn, args=args: fn(*args), fn.entry)
     B, N, M = NN_B1
     g = torch.Generator().manual_seed(0)
     src = torch.randn((B, N, 3), generator=g).to(dev)
     tgt = torch.randn((B, M, 3), generator=g).to(dev)
     mask = (torch.rand((B, M), generator=g) > 0.1).to(dev)
-    idx = torch.empty((B, N), dtype=torch.int32, device=dev)
-    matched = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
-    lib = build.library()
-    ptrs = (src.data_ptr(), tgt.data_ptr(), mask.data_ptr(), B, N, M, 3,
-            idx.data_ptr(), matched.data_ptr())
-    return (lambda: nn_argmin(src, tgt, mask),
-            lambda: (torch.empty((B, N), dtype=torch.int32, device=dev),
-                     torch.empty((B, N, 3), dtype=torch.float32,
-                                 device=dev)),
-            lambda: lib.slam_nn_argmin(*ptrs, stream))
-
-
-def split(dev=None) -> dict:
-    """{label: {"call", "empty", "entry", "python"} host us, and "events"
-    us by CUDA events} for each P1-P6 wrapper (its name) and
-    "nn_argmin_b1", and under "library" {label: {"call", "events"}} of the
-    library calls."""
-    dev = torch.device("cuda") if dev is None else dev
-    stream = torch.cuda.current_stream().cuda_stream
-    parts = {pallas_probe.KERNELS[name].__name__: _probe_parts(name, dev,
-                                                               stream)
-             for name in pallas_probe.KERNELS}
-    parts["nn_argmin_b1"] = _nn_parts(dev, stream)
+    calls["nn_argmin_b1"] = (lambda: nn_argmin(src, tgt, mask),
+                             nn_argmin.entry)
     res = {}
-    for label, (call, empty, entry) in parts.items():
+    for label, (call, entry) in calls.items():
+        empty, alone = _parts(call, entry, dev)
         t = {"call": host_us(call), "empty": host_us(empty),
-             "entry": host_us(entry)}
+             "entry": host_us(alone)}
         t["python"] = t["call"] - t["empty"] - t["entry"]
         t["events"] = events_us(call)
         res[label] = t

@@ -387,3 +387,31 @@ def test_probe_tools_refuse_a_host_without_cuda(tool):
     assert out.returncode != 0
     assert "needs a CUDA GPU" in out.stderr
     assert out.stdout == ""
+
+
+@pytest.mark.parametrize("outputs", [1, 2])
+def test_host_split_times_the_entry_on_the_wrappers_arguments(outputs):
+    """tools/host_split records the arguments and stream one wrapper call
+    passed its build.Entry, then calls the entry's function alone on them,
+    and allocates what the wrapper returned; the entry is left as it was."""
+    from lidar_slam_tpu_torch.kernels import build
+    from lidar_slam_tpu_torch.tools import host_split
+
+    seen = []
+    fake = lambda *args: seen.append(args) or 0  # noqa: E731
+    entry = build.Entry("slam_probe_fake")
+    entry._fn, entry._get_device = fake, lambda: 0
+    entry._raw_stream = lambda index: 77 + index
+    made = (torch.zeros((3, 2)), torch.zeros(4, dtype=torch.int32))
+
+    def call():
+        entry(0, 5, 6)
+        return made[0] if outputs == 1 else made
+
+    empty, alone = host_split._parts(call, entry, torch.device("cpu"))
+    assert entry._fn is fake and seen == [(5, 6, 77)] * 2
+    assert alone() == 0 and seen[-1] == (5, 6, 77) and len(seen) == 3
+    got = empty()
+    got = (got,) if outputs == 1 else got
+    assert [(t.shape, t.dtype) for t in got] == [
+        (t.shape, t.dtype) for t in made[:outputs]]
