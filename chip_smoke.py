@@ -55,8 +55,9 @@ first failure and catches nothing):
      where one computes the same function (P9 at a reduced 64 pairs x 2
      repetitions, as its plain version loops in Python, with the timed
      case's kernel output held bit for bit against its plain version's on
-     the card), P3 also with 65,536 entries, 7 in 8 on one tile, and P5
-     also at 4,096 entries whose float32 sum depends on the order; then,
+     the card), P2-P4 also with 65,536 entries, 7 in 8 on one tile (P2
+     takes their rows alone), and P5 also at 4,096 entries whose float32
+     sum depends on the order; then,
      with the launch counters reset, the port's three probe tools
      (lidar_slam_tpu_torch/tools: pallas_probe, scatter_microbench,
      vpu_probe) at the JAX tools' sizes and counts;
@@ -65,7 +66,7 @@ first failure and catches nothing):
      clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
      pairs; raywalk_build's binning and walk kernels over three main-path
      builds, and the walk's ns a crossing of the hottest owner; P1-P6 over
-     100 launches each on the JAX tool's inputs (P3 and P5 also at [10]'s
+     100 launches each on the JAX tool's inputs (P2-P5 also at [10]'s
      second cases); the host's side of a P1-P6 call and of nn_argmin at
      B = 1 (tools/host_split: the host clock of the wrapper, of its
      torch.empty and of its C entry point alone, and the rest, its
@@ -303,12 +304,13 @@ def one_tile_segments(n: int):
             (100 * k + 1).astype(np.int32), (700 * k).astype(np.int32))
 
 
-P3_HOT, P5_N = 65_536, 4096  # [10]'s second cases of P3 and P5
+HOT_N, P5_N = 65_536, 4096  # [10]'s second cases of P2-P4 and P5
 
 
 def hot_tile_entries(n: int):
-    """P3's hot case: n entries on the (64, 256) grid, 7 in 8 of them on
-    the tile at rows [40, 48) x lanes [128, 256)."""
+    """P2-P4's hot case: n entries (xs, ys) on the (64, 256) grid, 7 in 8
+    of them on the tile at rows [40, 48) x lanes [128, 256); P2 takes the
+    xs alone, 7 in 8 of them in the row band [40, 48)."""
     from lidar_slam_tpu_torch.kernels import probes
 
     rng = np.random.default_rng(14)
@@ -325,6 +327,20 @@ def order_sensitive(n: int) -> np.ndarray:
     """P5's second case: [1e8, 1, -1e8, 1] repeated; in float32 1e8 + 1
     rounds to 1e8, so the in-order sum is 1.0 and a tree sum is not."""
     return np.tile(np.float32([1e8, 1.0, -1e8, 1.0]), n // 4)
+
+
+def second_cases() -> dict:
+    """{wrapper: (tag, label, arrays)} of [10]'s and [11]'s second cases
+    of P2-P5."""
+    from lidar_slam_tpu_torch.kernels import probes
+
+    xs, ys = hot_tile_entries(HOT_N)
+    hot = f"hot tile n={HOT_N}"
+    return {probes.dynamic_store: ("hot_tile", hot, (xs,)),
+            probes.dynamic_lane_store: ("hot_tile", hot, (xs, ys)),
+            probes.masked_tile: ("hot_tile", hot, (xs, ys)),
+            probes.scalar_sum: (f"n{P5_N}", f"order-sensitive n={P5_N}",
+                                (order_sensitive(P5_N),))}
 
 
 class ProbeCase(NamedTuple):
@@ -373,26 +389,23 @@ def probe_cases(dev) -> list:
         out_n = 1 if fn is probes.scalar_sum else int(np.prod(
             probes.GRID_SHAPE if fn is probes.full_grid
             else probes.PROBE_SHAPE))
-        # P3 tests each entry's tile once, in integers (no adds); P4 adds
-        # each entry into one cell; P1 and P2 add (8, 128) tiles
-        ops = {probes.dynamic_lane_store: n, probes.masked_tile: n,
-               probes.scalar_sum: n,
+        # P2 and P3 test each entry's tile once, in integers (no adds); P4
+        # adds each entry into one cell; P1 adds (8, 128) tiles
+        ops = {probes.dynamic_store: n, probes.dynamic_lane_store: n,
+               probes.masked_tile: n, probes.scalar_sum: n,
                probes.full_grid: 0}.get(fn, n * probes.TS * probes.LANES)
         library = {probes.scalar_sum: lambda g=g: g[0].sum(),
                    probes.full_grid: lambda: torch.ones(
                        probes.GRID_SHAPE, device=dev)}.get(fn)
         cases.append(case(fn, name, g, c, library or adds_library(fn, g),
                           sum(a.nbytes for a in arrays) + 4 * out_n, ops, 50))
-    for label, fn, arrays, tag in [
-            (f"dynamic_lane_store hot tile n={P3_HOT}",
-             probes.dynamic_lane_store, hot_tile_entries(P3_HOT), "hot_tile"),
-            (f"scalar_sum order-sensitive n={P5_N}", probes.scalar_sum,
-             (order_sensitive(P5_N),), f"n{P5_N}")]:
+    for fn, (tag, label, arrays) in second_cases().items():
         g = [torch.as_tensor(a, device=dev) for a in arrays]
         n = len(arrays[0])
         sums = fn is probes.scalar_sum
         cases.append(case(
-            fn, label, g, [torch.as_tensor(a) for a in arrays],
+            fn, f"{fn.__name__} {label}", g,
+            [torch.as_tensor(a) for a in arrays],
             (lambda g=g: g[0].sum()) if sums else adds_library(fn, g),
             sum(a.nbytes for a in arrays) + 4 * (1 if sums else int(
                 np.prod(probes.PROBE_SHAPE))),
@@ -944,15 +957,14 @@ def main() -> int:
           f"{fmt(k1_ms['walk'])} a build{per_crossing}; CUDA events "
           f"{rw_ms:.3f} ms a build", flush=True)
 
-    # P1-P6 a launch on the JAX tool's inputs (P3 and P5 also at [10]'s
+    # P1-P6 a launch on the JAX tool's inputs (P2-P5 also at [10]'s
     # second cases), then the host's side of P1-P6 and K4 at B = 1
     from lidar_slam_tpu_torch.kernels import probes
     from lidar_slam_tpu_torch.tools import (host_split, pallas_probe,
                                             scatter_microbench, vpu_probe)
 
     rows_by_name = {row["name"]: row for row in probe_rows}
-    second = {probes.dynamic_lane_store: ("hot_tile", hot_tile_entries(
-        P3_HOT)), probes.scalar_sum: (f"n{P5_N}", (order_sensitive(P5_N),))}
+    second = second_cases()
     for name, fn in pallas_probe.KERNELS.items():
         args = [torch.as_tensor(a, device=dev)
                 for a in pallas_probe.inputs(name)] or [dev]
@@ -962,7 +974,7 @@ def main() -> int:
         row["device_ms"] = device_ms(lambda: fn(*args), 100, kernel)
         more = ""
         if fn in second:
-            tag, arrays = second[fn]
+            tag, _, arrays = second[fn]
             args2 = [torch.as_tensor(a, device=dev) for a in arrays]
             row[f"device_ms_{tag}"] = device_ms(lambda: fn(*args2), 100,
                                                 kernel)

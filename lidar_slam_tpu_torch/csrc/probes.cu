@@ -21,16 +21,16 @@
 // (update order, segment order or emit order). P1-P4 and P9: the TPU tiles
 // are (8, 128) or (64, 128), always at offsets that are multiples of the
 // tile, so a cell has one tile-local position (s, l) whatever tile covers
-// it. In P1, P2 and P4 the thread that owns (s, l) does every add to the
-// cells at that position, in order; in P9 a thread owns one cell of one
-// tile position and does its adds. No other thread touches them, so each
+// it. In P1 the thread that owns (s, l) does every add to the cells at
+// that position, in order; in P9 a thread owns one cell of one tile
+// position and does its adds. No other thread touches them, so each
 // cell's float32 sum is the sequential one. P5 folds in index order in
 // one warp. The TPU's masked RMW also adds
 // 0.0 to the rest of the tile; x + 0.0 == x for every x except -0.0 and
 // NaN, which no probe's grid holds (it starts at +0.0 or at finite random
 // values, and a round-to-nearest sum of nonzero terms is never -0.0), so
-// those adds are skipped. P7 partitions its updates stably by cell, P8
-// and P3 count (below). Cells outside the grid are dropped (the tools
+// those adds are skipped. P7 partitions its updates stably by cell; P2-P4
+// and P8 count (below). Cells outside the grid are dropped (the tools
 // never produce them).
 //
 // What bounds them on an H100. P1-P5 move under 70 KB: one launch, a few
@@ -42,9 +42,9 @@
 // microsecond; what it measures is the cost of a masked (64, 128) tile
 // visit, spread over the card.
 //
-// Designs. P1, P2, P4: one block of 1,024 threads, one per (8, 128)
-// position. P3: a block for each (8, 128) tile position, counting (see
-// "P3" below). P5: one warp, an in-order fold. P6: 16-byte stores from
+// Designs. P1: one block of 1,024 threads, one per (8, 128) position.
+// P2-P4: a block for each (8, 128) tile position, counting (see "P2, P3,
+// P4" below). P5: one warp, an in-order fold. P6: 16-byte stores from
 // the first 16-byte boundary (a scalar head before it and a scalar tail
 // after the last whole float4), a float4 a thread, the grid sized from the
 // element count and capped at sixteen 256-thread blocks an SM. P7, P8:
@@ -64,6 +64,7 @@ namespace {
 constexpr int TS = 8;      // rows of the (8, 128) tile
 constexpr int TL = 128;    // lanes of a tile (both tile shapes)
 constexpr int TILE_THREADS = TS * TL;  // one thread per (8, 128) position
+constexpr unsigned ALL_LANES = 0xffffffffu;
 
 constexpr int VS = 64;  // rows of P9's (64, 128) tile
 constexpr int RAY_W_MAX = 4096;  // P9's ray modes wrap the word table
@@ -79,11 +80,18 @@ __device__ __forceinline__ void add_cell(float* __restrict__ g, int W, int H,
   }
 }
 
-// P1-P4: thread (s, l) zeroes every cell it owns.
+// P1: thread (s, l) zeroes every cell it owns.
 __device__ __forceinline__ void zero_owned(float* __restrict__ out, int W,
                                            int H, int s, int l) {
   for (int x = s; x < W; x += TS)
     for (int y = l; y < H; y += TL) out[(size_t)x * H + y] = 0.f;
+}
+
+// S_k: k sequential __fadd_rn of val from +0.0 (P4, P8).
+__device__ __forceinline__ float k_fold_sum(int k, float val) {
+  float acc = 0.f;
+  for (int i = 0; i < k; ++i) acc = __fadd_rn(acc, val);
+  return acc;
 }
 
 // P1: the static tile [0, 8) x [0, 128) += xs[i], i in order.
@@ -95,74 +103,106 @@ smem_stream_kernel(const float* __restrict__ xs, int n,
   for (int i = 0; i < n; ++i) add_cell(out, W, H, s, l, xs[i]);
 }
 
+// -- P2, P3, P4: count, then write once ----------------------------------
+//
+// Replaced: pallas_probe.py::v2_dynamic_store (:64), v3_dynamic_lane_store
+// (:92) and v4_masked_tile (:122), one (8, 128) tile RMW per entry, in
+// order, into a VMEM-resident zero grid: +1.0 to the whole tile at
+// (floor(x / 8) * 8, 0) (P2) or (floor(x / 8) * 8, floor(y / 128) * 128)
+// (P3), and -1.386 to the one cell (x, y) of that tile that P4's mask lets
+// through. Bound on an H100: bytes, the entries read once and the 64 x 256
+// grid written once (0.00002 ms at the tool's 64 entries): launch-bound.
+// The one-block designs walked the entries in turn, each a dependent
+// global read-add-write of 16 cells a thread (6-10 us on the device; the
+// launch floor is 1.2).
+//
+// Every add of a probe is the same value into a zero grid, so a cell hit
+// k times holds S_k, the k-fold float32 sum of that value from +0.0,
+// whatever the order of the entries. In P2 and P3 k counts the entries on
+// the cell's tile, and S_k = min(k, 2^24) exactly (float32 holds every
+// integer to 2^24, and 2^24 + 1 rounds to even, back to 2^24). In P4 k
+// counts the entries on the cell itself, and S_k is k sequential adds of
+// -1.386 (k_fold_sum; the argument P8 uses). So a block of 1,024 threads
+// for each tile position (16 on the tool's grid), thread (s, l) owning the
+// position's cell (s, l): the threads take the entries strided (coalesced
+// loads) and count the tile's hits in integers, and each writes its cell
+// once. P2 and P3 sum one count a tile by a warp reduction and the 32 warp
+// sums in shared memory; P4 keeps a counter a cell in shared memory and
+// adds to it by integer atomics. Integer counts need no order. P2's
+// entries all lie on lane tile 0, so its other blocks read nothing and
+// write zeros. An entry's tile is (x >> 3, y >> 7), an arithmetic shift
+// (floor division, as the plain versions'): an entry off the grid's tiles
+// counts for none (P4 reads x & 7 and y & 127 only after the tile test),
+// and cells past a partial edge tile are not written. What stays serial
+// is P4's chain of k dependent adds a cell: at most one at the tool's 64
+// entries, tens on a hot tile, about 5 ns an add.
+
+// P2 and P3: the hits of the block's tile (tx, ty) among the n entries,
+// (xs[i] >> 3, ys[i] >> 7) == (tx, ty), each of its cells written once as
+// S_k. With no ys (P2, HAS_YS false) every entry lies on lane tile 0, and
+// a block at ty > 0 reads nothing and writes zeros. HAS_YS is a template
+// argument so that P3's loop tests no pointer at run time.
+template <bool HAS_YS>
+__device__ __forceinline__ void write_tile_hits(
+    const int32_t* __restrict__ xs, const int32_t* __restrict__ ys, int n,
+    float* __restrict__ out, int W, int H) {
+  __shared__ unsigned warp_hits[TILE_THREADS / 32];
+  __shared__ unsigned hits;
+  const int TY = (H + TL - 1) / TL;
+  const int tx = blockIdx.x / TY, ty = blockIdx.x % TY;
+  unsigned k = 0;
+  if (HAS_YS || ty == 0) {  // block-uniform
+    for (int i = threadIdx.x; i < n; i += TILE_THREADS)
+      k += (xs[i] >> 3) == tx && (!HAS_YS || (ys[i] >> 7) == ty);
+    k = __reduce_add_sync(ALL_LANES, k);
+    if ((threadIdx.x & 31) == 0) warp_hits[threadIdx.x >> 5] = k;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      k = __reduce_add_sync(ALL_LANES, warp_hits[threadIdx.x]);
+      if (threadIdx.x == 0) hits = k;
+    }
+    __syncthreads();
+    k = hits;
+  }
+  const int x = tx * TS + threadIdx.x / TL, y = ty * TL + threadIdx.x % TL;
+  if (x < W && y < H)
+    out[(size_t)x * H + y] = (float)min(k, 1u << 24);  // S_k
+}
+
 // P2: rows [x8, x8 + 8) x lanes [0, 128) += 1, x8 = floor(x / 8) * 8.
 __global__ void __launch_bounds__(TILE_THREADS)
 dynamic_store_kernel(const int32_t* __restrict__ xs, int n,
                      float* __restrict__ out, int W, int H) {
-  const int s = threadIdx.x / TL, l = threadIdx.x % TL;
-  zero_owned(out, W, H, s, l);
-  for (int i = 0; i < n; ++i)
-    add_cell(out, W, H, (xs[i] >> 3) * TS + s, l, 1.f);
+  write_tile_hits<false>(xs, nullptr, n, out, W, H);
 }
 
-// -- P3: count, then write once ------------------------------------------
-//
-// Replaced: pallas_probe.py::v3_dynamic_lane_store (:92), one (8, 128)
-// tile RMW (+1.0) per entry at (floor(x / 8) * 8, floor(y / 128) * 128)
-// into a VMEM-resident zero grid, in order. Bound on an H100: bytes, the
-// entries read once and the 64 x 256 grid written once (0.00002 ms at the
-// tool's 64 entries): launch-bound. The one-block design walked the 64
-// entries in turn, each a dependent global read-add-write of 16 cells a
-// thread (10 us on the device, the launch floor is 1.4).
-//
-// Every add is +1.0 to a whole tile of a zero grid, so a cell holds S_k,
-// the k-fold float32 sum of 1.0, where k counts the entries on its tile,
-// whatever their order; S_k = min(k, 2^24) exactly (float32 holds every
-// integer to 2^24, and 2^24 + 1 rounds to even, back to 2^24). So a block
-// of 1,024 threads for each tile position (16 on the tool's grid), thread
-// (s, l) owning the position's cell (s, l): the threads take the entries
-// strided (coalesced loads), count their tile's hits in integers, sum the
-// counts by a warp reduction and the 32 warp sums in shared memory, and
-// each writes its cell once. Integer sums need no order and no atomics.
-// An entry's tile is (x >> 3, y >> 7), an arithmetic shift (floor
-// division, as the plain version's): an entry off the grid's tiles counts
-// for none, and cells past a partial edge tile are not written.
+// P3: as P2 on the tile at lane offset floor(y / 128) * 128.
 __global__ void __launch_bounds__(TILE_THREADS)
 dynamic_lane_store_kernel(const int32_t* __restrict__ xs,
                           const int32_t* __restrict__ ys, int n,
                           float* __restrict__ out, int W, int H) {
-  __shared__ unsigned warp_hits[TILE_THREADS / 32];
-  __shared__ unsigned tile_hits;
-  const int TY = (H + TL - 1) / TL;
-  const int tx = blockIdx.x / TY, ty = blockIdx.x % TY;
-  unsigned k = 0;
-  for (int i = threadIdx.x; i < n; i += TILE_THREADS)
-    k += (xs[i] >> 3) == tx && (ys[i] >> 7) == ty;
-  k = __reduce_add_sync(0xffffffffu, k);
-  if ((threadIdx.x & 31) == 0) warp_hits[threadIdx.x >> 5] = k;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    k = __reduce_add_sync(0xffffffffu, warp_hits[threadIdx.x]);
-    if (threadIdx.x == 0) tile_hits = k;
-  }
-  __syncthreads();
-  const int x = tx * TS + threadIdx.x / TL, y = ty * TL + threadIdx.x % TL;
-  if (x < W && y < H)
-    out[(size_t)x * H + y] = (float)min(tile_hits, 1u << 24);  // S_k
+  write_tile_hits<true>(xs, ys, n, out, W, H);
 }
 
-// P4: cell (x, y) += val: the one cell of the tile's mask.
+// P4: cell (x, y) += val, the one cell of the tile's mask.
 __global__ void __launch_bounds__(TILE_THREADS)
 masked_tile_kernel(const int32_t* __restrict__ xs,
                    const int32_t* __restrict__ ys, int n, float val,
                    float* __restrict__ out, int W, int H) {
-  const int s = threadIdx.x / TL, l = threadIdx.x % TL;
-  zero_owned(out, W, H, s, l);
-  for (int i = 0; i < n; ++i) {
+  __shared__ unsigned hits[TILE_THREADS];  // cell (s, l) at s * TL + l
+  const int TY = (H + TL - 1) / TL;
+  const int tx = blockIdx.x / TY, ty = blockIdx.x % TY;
+  hits[threadIdx.x] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += TILE_THREADS) {
     const int x = xs[i], y = ys[i];
-    if ((x & (TS - 1)) == s && (y & (TL - 1)) == l)
-      add_cell(out, W, H, x, y, val);
+    if ((x >> 3) == tx && (y >> 7) == ty)
+      atomicAdd(&hits[(x & (TS - 1)) * TL + (y & (TL - 1))], 1u);
   }
+  __syncthreads();
+  const int x = tx * TS + threadIdx.x / TL, y = ty * TL + threadIdx.x % TL;
+  if (x < W && y < H)
+    out[(size_t)x * H + y] = k_fold_sum((int)hits[threadIdx.x], val);
 }
 
 // P5: the in-order float32 sum of xs. Replaced:
@@ -176,8 +216,6 @@ masked_tile_kernel(const int32_t* __restrict__ xs,
 // on an H100 (a fold from shared memory is no faster; one thread loading
 // as it adds, the one-thread design, is 2.3x slower).
 
-constexpr unsigned FULL_WARP = 0xffffffffu;
-
 __global__ void __launch_bounds__(32)
 scalar_sum_kernel(const float* __restrict__ xs, int n,
                   float* __restrict__ out) {
@@ -189,10 +227,10 @@ scalar_sum_kernel(const float* __restrict__ xs, int n,
     if (left >= 32) {
 #pragma unroll
       for (int j = 0; j < 32; ++j)
-        acc = __fadd_rn(acc, __shfl_sync(FULL_WARP, v, j));
+        acc = __fadd_rn(acc, __shfl_sync(ALL_LANES, v, j));
     } else {
       for (int j = 0; j < left; ++j)
-        acc = __fadd_rn(acc, __shfl_sync(FULL_WARP, v, j));
+        acc = __fadd_rn(acc, __shfl_sync(ALL_LANES, v, j));
     }
     v = next;
   }
@@ -263,8 +301,6 @@ fill_kernel(float* __restrict__ out, size_t head, size_t n4, size_t n,
 // launch path costs more than the device's work at the tool's size).
 // A float atomicAdd(val) would not do: PTX atom.add.f32 flushes subnormal
 // inputs and results, so it is not exact for every val.
-
-constexpr unsigned ALL_LANES = 0xffffffffu;
 
 // The exclusive prefix of v over the block's BT threads (BT a multiple of
 // 32); total gets the sum. warp_sums holds 32 ints. Barriers inside; the
@@ -582,13 +618,6 @@ tile_rmw_sum_kernel(const int* __restrict__ bounds,
   if (x < W && y < H) out[(size_t)x * H + y] = acc;
 }
 
-// S_k: k sequential __fadd_rn of val from +0.0.
-__device__ __forceinline__ float k_fold_sum(int k, float val) {
-  float acc = 0.f;
-  for (int i = 0; i < k; ++i) acc = __fadd_rn(acc, val);
-  return acc;
-}
-
 // P8, one cooperative launch, three passes a grid barrier apart: zero the
 // grid (as int32 counts); a warp a segment (lanes l, l + 32, l + 64), one
 // integer atomicAdd a hit; each count k becomes S_k in place. Four cells
@@ -826,6 +855,14 @@ vpu_loop_kernel(const int32_t* __restrict__ words, int cols, int n_pairs,
 
 int last_error() { return (int)cudaGetLastError(); }
 
+// P2-P4's launch: a block for each (8, 128) tile position of a (W, H)
+// grid; -1 for invalid arguments or more blocks than one launch takes.
+long long tile_blocks(int n, int W, int H) {
+  if (n < 0 || W <= 0 || H <= 0) return -1;
+  const long long tiles = (long long)((W + TS - 1) / TS) * ((H + TL - 1) / TL);
+  return tiles > 0x7fffffffLL ? -1 : tiles;
+}
+
 // P7's scratch layout for u updates on a (W, H) grid: the lists' entries
 // (int2, u), the (owner, chunk) table, owner totals, list bounds and first
 // windows (n_owners + 1 each), each window's owner (at most max_windows),
@@ -942,9 +979,9 @@ int tile_rmw_launch(const int32_t* xs, const int32_t* ys, const float* vs,
 
 }  // namespace
 
-// P1-P4: inputs of n entries, output (W, H) float32, written whole. One
-// block (P3: one a tile position). Each entry point launches on `stream`
-// and returns cudaGetLastError() of the launch.
+// P1-P4: inputs of n entries, output (W, H) float32, written whole. P1:
+// one block; P2-P4: a block for each (8, 128) tile position. Each entry
+// point launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int slam_probe_smem_stream(const void* xs, int n, void* out, int W,
                                       int H, void* stream) {
   smem_stream_kernel<<<1, TILE_THREADS, 0, (cudaStream_t)stream>>>(
@@ -954,18 +991,18 @@ extern "C" int slam_probe_smem_stream(const void* xs, int n, void* out, int W,
 
 extern "C" int slam_probe_dynamic_store(const void* xs, int n, void* out,
                                         int W, int H, void* stream) {
-  dynamic_store_kernel<<<1, TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  const long long tiles = tile_blocks(n, W, H);
+  if (tiles < 0) return (int)cudaErrorInvalidValue;
+  dynamic_store_kernel<<<(int)tiles, TILE_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)xs, n, (float*)out, W, H);
   return last_error();
 }
 
-// P3: a block for each (8, 128) tile position of the grid.
 extern "C" int slam_probe_dynamic_lane_store(const void* xs, const void* ys,
                                              int n, void* out, int W, int H,
                                              void* stream) {
-  if (n < 0 || W <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const long long tiles = (long long)((W + TS - 1) / TS) * ((H + TL - 1) / TL);
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long tiles = tile_blocks(n, W, H);
+  if (tiles < 0) return (int)cudaErrorInvalidValue;
   dynamic_lane_store_kernel<<<(int)tiles, TILE_THREADS, 0,
                               (cudaStream_t)stream>>>(
       (const int32_t*)xs, (const int32_t*)ys, n, (float*)out, W, H);
@@ -975,7 +1012,9 @@ extern "C" int slam_probe_dynamic_lane_store(const void* xs, const void* ys,
 extern "C" int slam_probe_masked_tile(const void* xs, const void* ys, int n,
                                       float val, void* out, int W, int H,
                                       void* stream) {
-  masked_tile_kernel<<<1, TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  const long long tiles = tile_blocks(n, W, H);
+  if (tiles < 0) return (int)cudaErrorInvalidValue;
+  masked_tile_kernel<<<(int)tiles, TILE_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)xs, (const int32_t*)ys, n, val, (float*)out, W, H);
   return last_error();
 }

@@ -105,7 +105,13 @@ def _zeros(shape, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
-# -- P1-P4 (tools/pallas_probe.py v1-v4): one block, output PROBE_SHAPE ----
+# -- P1-P4 (tools/pallas_probe.py v1-v4), output PROBE_SHAPE ---------------
+#
+# P1's kernel is one block. P2-P4's add one value a probe into a zero grid,
+# so a cell's sum depends only on its hit count k: each (8, 128) tile
+# position's block counts its hits in integers and writes each cell's S_k
+# once. The *_design functions are those designs in PyTorch, for the CPU
+# tests.
 
 def smem_stream_cells(xs: torch.Tensor):
     s, l = _tile_iota(xs.device)
@@ -153,7 +159,10 @@ def dynamic_store_plain(xs: torch.Tensor) -> torch.Tensor:
 
 def dynamic_store(xs: torch.Tensor) -> torch.Tensor:
     """P2: rows [x8, x8 + 8) x lanes [0, 128) += 1 for every x in order,
-    x8 = floor(x / 8) * 8. xs (n,) int32."""
+    x8 = floor(x / 8) * 8. xs (n,) int32. On the card: a block of 1,024
+    threads for each (8, 128) tile position; those at lane tile 0 count
+    their row band's hits in integers, and each writes its cells once
+    (dynamic_store_design; csrc/probes.cu)."""
     if not xs.is_cuda:
         return dynamic_store_plain(xs)
     index = xs.get_device()
@@ -192,6 +201,38 @@ def ones_fold(k: torch.Tensor) -> torch.Tensor:
     return k.clamp(max=ONES_EXACT).to(torch.float32)
 
 
+def k_fold(k: torch.Tensor, val: float) -> torch.Tensor:
+    """S_k, the k-fold in-order float32 sum of val from +0.0, for integer
+    counts k >= 0 (the kernels' k_fold_sum): a table of the sums up to the
+    largest count, one add at a time."""
+    step = torch.tensor(val, dtype=torch.float32)
+    sums = [torch.zeros((), dtype=torch.float32)]
+    for _ in range(int(k.max()) if k.numel() else 0):
+        sums.append(sums[-1] + step)
+    return torch.stack(sums).to(k.device)[k]
+
+
+def _tiles(xs: torch.Tensor, ys: torch.Tensor):
+    """(tile, on, TX, TY): each entry's (8, 128) tile position of
+    PROBE_SHAPE, row-major over its TX x TY positions, by floor division
+    (the kernels' arithmetic shifts), and whether it lies on the grid's
+    tiles."""
+    W, H = PROBE_SHAPE
+    TX, TY = -(-W // TS), -(-H // LANES)
+    tx = torch.div(xs.long(), TS, rounding_mode="floor")
+    ty = torch.div(ys.long(), LANES, rounding_mode="floor")
+    on = (tx >= 0) & (tx < TX) & (ty >= 0) & (ty < TY)
+    return tx * TY + ty, on, TX, TY
+
+
+def _tile_grid(cells: torch.Tensor) -> torch.Tensor:
+    """(TX, TS, TY, LANES) tile cells as the PROBE_SHAPE grid, the cells
+    past a partial edge tile dropped."""
+    W, H = PROBE_SHAPE
+    TX, _, TY, _ = cells.shape
+    return cells.reshape(TX * TS, TY * LANES)[:W, :H].contiguous()
+
+
 def dynamic_lane_store_design(xs: torch.Tensor,
                               ys: torch.Tensor) -> torch.Tensor:
     """P3 by its kernel's design: every add is +1.0 to the whole (8, 128)
@@ -201,14 +242,15 @@ def dynamic_lane_store_design(xs: torch.Tensor,
     among all entries in integers (a warp shuffle, then shared memory) and
     write S_k (ones_fold) to its cells once. Entries whose tile lies off
     the grid count for no tile."""
-    W, H = PROBE_SHAPE
-    TX, TY = -(-W // TS), -(-H // LANES)
-    tx = torch.div(xs.long(), TS, rounding_mode="floor")
-    ty = torch.div(ys.long(), LANES, rounding_mode="floor")
-    on = (tx >= 0) & (tx < TX) & (ty >= 0) & (ty < TY)
-    count = torch.bincount((tx * TY + ty)[on], minlength=TX * TY)
-    tiles = ones_fold(count).view(TX, 1, TY, 1).expand(TX, TS, TY, LANES)
-    return tiles.reshape(TX * TS, TY * LANES)[:W, :H].contiguous()
+    tile, on, TX, TY = _tiles(xs, ys)
+    count = torch.bincount(tile[on], minlength=TX * TY)
+    return _tile_grid(ones_fold(count).view(TX, 1, TY, 1).expand(
+        TX, TS, TY, LANES))
+
+
+def dynamic_store_design(xs: torch.Tensor) -> torch.Tensor:
+    """P2 by its kernel's design: P3's with every entry on lane tile 0."""
+    return dynamic_lane_store_design(xs, torch.zeros_like(xs))
 
 
 def dynamic_lane_store(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
@@ -242,9 +284,27 @@ def masked_tile_plain(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
                          *masked_tile_cells(xs, ys))
 
 
+def masked_tile_design(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """P4 by its kernel's design: every add is -1.386 into one cell of a
+    zero grid, so each cell holds S_k (k_fold) of its hit count k, whatever
+    the order of the entries. The kernel gives each (8, 128) tile position
+    a block, whose threads count the hits of its 1,024 cells with integer
+    atomics in shared memory and write each cell's S_k once. Entries whose
+    tile lies off the grid count for no cell."""
+    tile, on, TX, TY = _tiles(xs, ys)
+    cell = (xs.long() % TS) * LANES + ys.long() % LANES
+    count = torch.bincount((tile * (TS * LANES) + cell)[on],
+                           minlength=TX * TY * TS * LANES)
+    return _tile_grid(k_fold(count, -LOG4).view(TX, TY, TS, LANES).permute(
+        0, 2, 1, 3))
+
+
 def masked_tile(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     """P4: cell (x, y) += -1.386 for every (x, y) in order (the TPU did it
-    as a masked (8, 128) tile RMW). xs, ys (n,) int32."""
+    as a masked (8, 128) tile RMW). xs, ys (n,) int32. On the card: a block
+    of 1,024 threads for each (8, 128) tile position, counting its cells'
+    hits in integers and writing each cell once (masked_tile_design;
+    csrc/probes.cu)."""
     if not xs.is_cuda:
         return masked_tile_plain(xs, ys)
     index = _check_pairs(xs, ys)
@@ -470,12 +530,7 @@ def segment_rmw_design(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,
     value, so the order of the segments cannot show)."""
     W, H = GRID_SHAPE
     flat, _ = adds(segment_rmw, x8, yl, a, b)
-    count = torch.bincount(flat, minlength=W * H)
-    val = torch.tensor(-LOG4, dtype=torch.float32)
-    sums = [torch.zeros((), dtype=torch.float32)]
-    for _ in range(int(count.max())):
-        sums.append(sums[-1] + val)
-    return torch.stack(sums).to(x8.device)[count].view(W, H)
+    return k_fold(torch.bincount(flat, minlength=W * H), -LOG4).view(W, H)
 
 
 def segment_rmw(x8: torch.Tensor, yl: torch.Tensor, a: torch.Tensor,

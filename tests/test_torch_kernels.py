@@ -541,8 +541,8 @@ def test_construct_probe_bit_exact(dev, name):
     _same_bits(got, pallas_probe.call(name, "cpu"))
 
 
-def _lane_store_entries(case: str, n: int):
-    """(xs, ys) CPU int32 tensors of one P3 case of n entries."""
+def _tile_entries(case: str, n: int):
+    """(xs, ys) CPU int32 tensors of one P2-P4 case of n entries."""
     rng = np.random.default_rng(n + 11)
     W, H = probes.PROBE_SHAPE
     if case == "off_grid":  # negative and past the grid on every side
@@ -552,22 +552,25 @@ def _lane_store_entries(case: str, n: int):
         hot = torch.as_tensor(rng.random(n) < 7 / 8)
         xs[hot] = _int32(rng, 40, 48, int(hot.sum()))
         ys[hot] = _int32(rng, 128, 256, int(hot.sum()))
+    if case == "hot_cell":  # 4,096 entries on cell (21, 200)
+        hot = torch.as_tensor(rng.choice(n, 4096, replace=False))
+        xs[hot], ys[hot] = 21, 200
     if case == "saturated":  # every entry on tile (2, 0): S_k = 2^24
         xs, ys = _int32(rng, 16, 24, n), _int32(rng, 0, 128, n)
     return xs, ys
 
 
-@pytest.mark.parametrize("case,n", [
-    ("random", 0), ("random", 1), ("random", 64), ("random", 1000),
-    ("random", 100_000), ("hot_tile", 65_536), ("off_grid", 5000),
-    ("saturated", 2**24 + 5),
-])
+TILE_CASES = [("random", 0), ("random", 1), ("random", 64), ("random", 1000),
+              ("random", 100_000), ("hot_tile", 65_536), ("off_grid", 5000)]
+
+
+@pytest.mark.parametrize("case,n", TILE_CASES + [("saturated", 2**24 + 5)])
 def test_dynamic_lane_store_bit_exact(dev, case, n):
     """P3's counting kernel against its design (and its plain version,
     one tile add an entry, up to 5,000 entries), bit for bit: no entries,
     a hot tile, entries off the grid on every side, and a tile hit more
     than 2^24 times, where the float32 fold of 1.0 stops at 2^24."""
-    xs, ys = _lane_store_entries(case, n)
+    xs, ys = _tile_entries(case, n)
     before = probes.dynamic_lane_store.launches
     got = probes.dynamic_lane_store(xs.to(dev), ys.to(dev))
     torch.cuda.synchronize()
@@ -578,6 +581,45 @@ def test_dynamic_lane_store_bit_exact(dev, case, n):
         _same_bits(got, probes.dynamic_lane_store_plain(xs, ys))
     if case == "saturated":
         assert float(want[16, 0]) == 2.0**24
+    assert bool(want.any()) == (n > 0)
+
+
+@pytest.mark.parametrize("case,n", TILE_CASES + [("saturated", 2**24 + 5)])
+def test_dynamic_store_bit_exact(dev, case, n):
+    """P2's counting kernel (P3's on lane tile 0) against its design (and
+    its plain version up to 5,000 entries), bit for bit, on P3's cases: a
+    row band hit more than 2^24 times writes 2^24."""
+    xs = _tile_entries(case, n)[0]
+    before = probes.dynamic_store.launches
+    got = probes.dynamic_store(xs.to(dev))
+    torch.cuda.synchronize()
+    assert probes.dynamic_store.launches == before + 1
+    want = probes.dynamic_store_design(xs)
+    _same_bits(got, want)
+    if n <= 5000:
+        _same_bits(got, probes.dynamic_store_plain(xs))
+    if case == "saturated":
+        assert float(want[16, 0]) == 2.0**24
+    assert bool(want.any()) == (n > 0)
+
+
+@pytest.mark.parametrize("case,n", TILE_CASES + [("hot_cell", 65_536)])
+def test_masked_tile_bit_exact(dev, case, n):
+    """P4's counting kernel (a hit count a cell, the k-fold sum of -1.386
+    written once) against its design (and its plain version up to 5,000
+    entries), bit for bit, on P3's cases and with one cell hit 4,096 times
+    among 65,536 entries."""
+    xs, ys = _tile_entries(case, n)
+    before = probes.masked_tile.launches
+    got = probes.masked_tile(xs.to(dev), ys.to(dev))
+    torch.cuda.synchronize()
+    assert probes.masked_tile.launches == before + 1
+    want = probes.masked_tile_design(xs, ys)
+    _same_bits(got, want)
+    if n <= 5000:
+        _same_bits(got, probes.masked_tile_plain(xs, ys))
+    if case == "hot_cell":
+        assert float(want[21, 200]) < -1.386 * 4000
     assert bool(want.any()) == (n > 0)
 
 

@@ -129,12 +129,13 @@ def _jax_probe(tools_env, name, inputs, ch=tpp.CH):
         return np.asarray(getattr(tool, name)())
 
 
-def _lane_store_entries(case: str):
-    """(xs, ys) int32 arrays of one P3 case."""
+def _tile_entries(case: str, tool: str = "v3_dynamic_lane_store"):
+    """(xs, ys) int32 arrays of one P2-P4 case ("tool": the inputs of JAX
+    tool `tool`, whose P2 takes only xs)."""
     W, H = probes.PROBE_SHAPE
     rng = np.random.default_rng(12)
     if case == "tool":
-        return tpp.inputs("v3_dynamic_lane_store")
+        return tpp.inputs(tool)
     if case == "hot_tile":  # 3,000 of 4,096 entries on tile (5, 1)
         xs = rng.integers(0, W, 4096).astype(np.int32)
         ys = rng.integers(0, H, 4096).astype(np.int32)
@@ -154,7 +155,7 @@ def test_dynamic_lane_store_design_equals_plain(case):
     plain version (one +1.0 tile add an entry, in order), bit for bit:
     on the tool's entries, a hot tile, entries off the grid on every side
     (dropped by the same floor division) and none."""
-    xs, ys = map(torch.from_numpy, _lane_store_entries(case))
+    xs, ys = map(torch.from_numpy, _tile_entries(case))
     want = probes.dynamic_lane_store_plain(xs, ys)
     _bits_equal(probes.dynamic_lane_store_design(xs, ys), want.numpy())
     inside = int(((xs >= 0) & (xs < 64) & (ys >= 0) & (ys < 256)).sum())
@@ -168,11 +169,61 @@ def test_dynamic_lane_store_design_equals_jax(tools_env, case):
     """P3's kernel design against the JAX tool's v3 in interpret mode, on
     the tool's 64 entries and on 4,096 entries with 3,000 on one tile (the
     tool's kernel then steps through 2,048 entries a grid step)."""
-    xs, ys = _lane_store_entries(case)
+    xs, ys = _tile_entries(case)
     want = _jax_probe(tools_env, "v3_dynamic_lane_store", (xs, ys),
                       len(xs) // 2)
     got = probes.dynamic_lane_store_design(torch.from_numpy(xs),
                                            torch.from_numpy(ys))
+    _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["tool", "hot_tile", "off_grid", "empty"])
+def test_dynamic_store_design_equals_plain(case):
+    """P2's kernel design (P3's with every entry on lane tile 0: a hit
+    count a row band, S_k written once) is its plain version (one +1.0
+    tile add an entry, in order), bit for bit, on the cases of P3's."""
+    xs = torch.from_numpy(_tile_entries(case, "v2_dynamic_store")[0])
+    want = probes.dynamic_store_plain(xs)
+    _bits_equal(probes.dynamic_store_design(xs), want.numpy())
+    assert float(want.sum()) == 1024 * int(((xs >= 0) & (xs < 64)).sum())
+    assert not want[:, 128:].any()
+    if case == "hot_tile":
+        assert float(want[40, 0]) >= 3000
+
+
+@pytest.mark.parametrize("case", ["tool", "hot_tile", "off_grid", "empty"])
+def test_masked_tile_design_equals_plain(case):
+    """P4's kernel design (a hit count a cell, the k-fold sum of -1.386
+    written once) is its plain version (one add an entry, in order), bit
+    for bit, on the cases of P3's."""
+    xs, ys = map(torch.from_numpy, _tile_entries(case, "v4_masked_tile"))
+    want = probes.masked_tile_plain(xs, ys)
+    _bits_equal(probes.masked_tile_design(xs, ys), want.numpy())
+    inside = (xs >= 0) & (xs < 64) & (ys >= 0) & (ys < 256)
+    cells = (xs.long() * 256 + ys)[inside].unique()
+    assert int((want != 0).sum()) == len(cells)
+    if case == "hot_tile":  # most cells of the hot tile hit twice or more
+        assert int((want[40:48, 128:] < -2.7).sum()) > 500
+
+
+@pytest.mark.parametrize("case", ["tool", "hot_tile"])
+def test_dynamic_store_design_equals_jax(tools_env, case):
+    """P2's kernel design against the JAX tool's v2 in interpret mode, on
+    the tool's 64 entries and on 4,096 with 3,000 in one row band."""
+    xs = _tile_entries(case, "v2_dynamic_store")[0]
+    want = _jax_probe(tools_env, "v2_dynamic_store", (xs,), len(xs) // 2)
+    _bits_equal(probes.dynamic_store_design(torch.from_numpy(xs)), want)
+
+
+@pytest.mark.parametrize("case", ["tool", "hot_tile"])
+def test_masked_tile_design_equals_jax(tools_env, case):
+    """P4's kernel design against the JAX tool's v4 in interpret mode (its
+    masked tile adds 0.0 off the mask), on the tool's 64 entries and on
+    4,096 with 3,000 on one tile."""
+    xs, ys = _tile_entries(case, "v4_masked_tile")
+    want = _jax_probe(tools_env, "v4_masked_tile", (xs, ys), len(xs) // 2)
+    got = probes.masked_tile_design(torch.from_numpy(xs),
+                                    torch.from_numpy(ys))
     _bits_equal(got, want)
 
 
@@ -194,6 +245,20 @@ def test_ones_fold_is_the_sequential_fold(ones_folds, k):
     assert got.numpy().view(np.int32)[0] == ones_folds[k:k + 1].view(
         np.int32)[0]
     assert float(got[0]) == min(k, 2**24)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 1000, 100_000])
+def test_k_fold_is_the_sequential_fold(k):
+    """The sum P4's and P8's kernels write for a cell hit k times
+    (k_fold_sum), as k_fold tables it, is numpy's in-order float32
+    accumulate of -1.386."""
+    adds = np.full(k + 1, -probes.LOG4, np.float32)
+    adds[0] = 0.0
+    want = np.add.accumulate(adds, dtype=np.float32)[k:]
+    got = probes.k_fold(torch.tensor([k]), -probes.LOG4)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
 
 
 def _order_sensitive(case: str, n: int) -> np.ndarray:
