@@ -56,8 +56,8 @@ first failure and catches nothing):
      repetitions, as its plain version loops in Python, with the timed
      case's kernel output held bit for bit against its plain version's on
      the card), P2-P4 also with 65,536 entries, 7 in 8 on one tile (P2
-     takes their rows alone), and P5 also at 4,096 entries whose float32
-     sum depends on the order; then,
+     takes their rows alone), and P1 and P5 also at 4,096 entries whose
+     float32 sum depends on the order; then,
      with the launch counters reset, the port's three probe tools
      (lidar_slam_tpu_torch/tools: pallas_probe, scatter_microbench,
      vpu_probe) at the JAX tools' sizes and counts;
@@ -66,7 +66,7 @@ first failure and catches nothing):
      clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
      pairs; raywalk_build's binning and walk kernels over three main-path
      builds, and the walk's ns a crossing of the hottest owner; P1-P6 over
-     100 launches each on the JAX tool's inputs (P2-P5 also at [10]'s
+     100 launches each on the JAX tool's inputs (P1-P5 also at [10]'s
      second cases); the host's side of a P1-P6 call and of nn_argmin at
      B = 1 (tools/host_split: the host clock of the wrapper, of its
      torch.empty and of its C entry point alone, and the rest, its
@@ -76,12 +76,24 @@ first failure and catches nothing):
      at [10]'s timed case and at the tool's full mode (16,384 pairs x 8
      repetitions); and 100 online steps of a fresh stream (after 20
      unprofiled ones): device time and kernel launches a step, and the
-     share of raywalk_scan and nn_argmin (last, so the profiler cannot
-     slow the timings before it).
+     share of raywalk_scan and nn_argmin (after every timing of [1]-[10],
+     so the profiler cannot slow them; [12] and [13] run outside it);
+ 12. the filtered main path, run_slam(mode="gtsam", filter_lidar=True), on
+     [5]'s log (5.79 G DBSCAN point pairs), warmed up and timed with K1's
+     and K4's launch counters reset just before it: stage seconds with the
+     filter's; DBSCAN masks on the card equal to the CPU's on 256 scans,
+     the statistical filter's threshold within 1e-6 of the CPU's and its
+     masks equal outside that band (the points inside it counted), poses
+     finite, and its map against the plain scatter on CPU copies of the
+     kept rays, bit-exact;
+ 13. the texture of 2,407 RGB-D frames of 480 x 640 (bench.py's
+     synthetic frames and poses) on the 1201 x 1201 map, projector
+     "device": seconds a frame; the cells and colors painted by the first
+     64 frames on the card equal to the CPU's, bit for bit.
 
 The last three lines are the card's `name, power.limit`, a JSON object with
-each kernel's launch count on its path ([5] and [8] for K1, K2 and K4; the
-tools' run in [10] for P1-P9), its error against its plain version, its,
+each kernel's launch count on its path ([5] and [8] for K1, K2 and K4, and
+[12]'s apart for K1 and K4; the tools' run in [10] for P1-P9), its error against its plain version, its,
 the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
@@ -304,7 +316,7 @@ def one_tile_segments(n: int):
             (100 * k + 1).astype(np.int32), (700 * k).astype(np.int32))
 
 
-HOT_N, P5_N = 65_536, 4096  # [10]'s second cases of P2-P4 and P5
+HOT_N, P5_N = 65_536, 4096  # [10]'s second cases of P2-P4, P1 and P5
 
 
 def hot_tile_entries(n: int):
@@ -324,19 +336,22 @@ def hot_tile_entries(n: int):
 
 
 def order_sensitive(n: int) -> np.ndarray:
-    """P5's second case: [1e8, 1, -1e8, 1] repeated; in float32 1e8 + 1
-    rounds to 1e8, so the in-order sum is 1.0 and a tree sum is not."""
+    """P1's and P5's second case: [1e8, 1, -1e8, 1] repeated; in float32
+    1e8 + 1 rounds to 1e8, so the in-order sum is 1.0 and a tree sum is
+    not."""
     return np.tile(np.float32([1e8, 1.0, -1e8, 1.0]), n // 4)
 
 
 def second_cases() -> dict:
     """{wrapper: (tag, label, arrays)} of [10]'s and [11]'s second cases
-    of P2-P5."""
+    of P1-P5 (P1 and P5 on the same order-sensitive entries)."""
     from lidar_slam_tpu_torch.kernels import probes
 
     xs, ys = hot_tile_entries(HOT_N)
     hot = f"hot tile n={HOT_N}"
-    return {probes.dynamic_store: ("hot_tile", hot, (xs,)),
+    return {probes.smem_stream: (f"n{P5_N}", f"order-sensitive n={P5_N}",
+                                 (order_sensitive(P5_N),)),
+            probes.dynamic_store: ("hot_tile", hot, (xs,)),
             probes.dynamic_lane_store: ("hot_tile", hot, (xs, ys)),
             probes.masked_tile: ("hot_tile", hot, (xs, ys)),
             probes.scalar_sum: (f"n{P5_N}", f"order-sensitive n={P5_N}",
@@ -390,10 +405,8 @@ def probe_cases(dev) -> list:
             probes.GRID_SHAPE if fn is probes.full_grid
             else probes.PROBE_SHAPE))
         # P2 and P3 test each entry's tile once, in integers (no adds); P4
-        # adds each entry into one cell; P1 adds (8, 128) tiles
-        ops = {probes.dynamic_store: n, probes.dynamic_lane_store: n,
-               probes.masked_tile: n, probes.scalar_sum: n,
-               probes.full_grid: 0}.get(fn, n * probes.TS * probes.LANES)
+        # adds each entry into one cell; P1 and P5 fold the entries once
+        ops = 0 if fn is probes.full_grid else n
         library = {probes.scalar_sum: lambda g=g: g[0].sum(),
                    probes.full_grid: lambda: torch.ones(
                        probes.GRID_SHAPE, device=dev)}.get(fn)
@@ -538,6 +551,151 @@ def probe_phase(dev) -> list:
              "launches": fn.launches, **row} for fn, row in rows.items()]
 
 
+STAT_BAND_RTOL = 1e-6  # [12]: pooled float32 sums, card against CPU
+DBSCAN_CHECK_SCANS = 256  # [12]: scans whose DBSCAN masks the CPU redoes
+N_RGB_FRAMES, TEX_CHECK_FRAMES = 2407, 64  # [13]: dataset-20's RGB track
+
+
+def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
+    """[12]: run_slam(mode="gtsam", filter_lidar=True) on the
+    dataset-20-shaped log, once to warm up and once timed with K1's and
+    K4's launch counters reset just before it. Gates: DBSCAN masks on the
+    card equal to the CPU's on DBSCAN_CHECK_SCANS scans, bit for bit; the
+    statistical threshold within STAT_BAND_RTOL of the CPU's and its masks
+    equal but for points whose range lies within that band of it (counted);
+    poses finite; K1's map against the plain scatter on CPU copies of its
+    ray end cells, bit-exact. Returns the launch counts."""
+    from lidar_slam_tpu_torch.kernels.nn import nn_argmin
+    from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
+    from lidar_slam_tpu_torch.models import occupancy, slam
+    from lidar_slam_tpu_torch.ops import filters
+
+    fc = cfg.filter
+    slam.run_slam(*log21, mode="gtsam", filter_lidar=True, cfg=cfg,
+                  device=dev)  # warm-up
+    torch.cuda.synchronize()
+    nn_argmin.launches = 0
+    raywalk_build.launches = 0
+    t0 = time.perf_counter()
+    res = slam.run_slam(*log21, mode="gtsam", filter_lidar=True, cfg=cfg,
+                        device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"nn_argmin": nn_argmin.launches,
+                "raywalk_build": raywalk_build.launches}
+    n_scans, n_rays = pts21.shape[:2]
+    print(f"[12] filtered gtsam (--filter_lidar), {n_scans} scans x {n_rays} "
+          f"rays ({n_scans * n_rays ** 2 / 1e9:.2f} G DBSCAN point pairs): "
+          f"total {total:.3f} s; " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+          + f"; launches {launches}", flush=True)
+    if min(launches.values()) == 0:
+        fail(f"a kernel was not launched on the filtered path: {launches}")
+    if res.poses.shape != (n_scans, 3) or not np.isfinite(res.poses).all():
+        fail("the filtered run's poses are not finite")
+
+    # the masks the run used, again on the card, and the CPU's
+    db = filters.dbscan_filter_scans(pts21, masks21, fc.dbscan_eps,
+                                     fc.dbscan_min_samples)
+    t1 = time.perf_counter()
+    db_cpu = filters.dbscan_filter_scans(
+        pts21[:DBSCAN_CHECK_SCANS].cpu(), masks21[:DBSCAN_CHECK_SCANS].cpu(),
+        fc.dbscan_eps, fc.dbscan_min_samples)
+    cpu_s = time.perf_counter() - t1
+    db_diff = int((db[:DBSCAN_CHECK_SCANS].cpu() != db_cpu).sum())
+    d, thresh = filters.statistical_threshold(pts21, db, fc.statistical_k_std)
+    kept = db & (d < thresh)
+    d_c, thresh_c = filters.statistical_threshold(pts21.cpu(), db.cpu(),
+                                                  fc.statistical_k_std)
+    kept_c = db.cpu() & (d_c < thresh_c)
+    band = STAT_BAND_RTOL * abs(float(thresh_c))
+    near = db.cpu() & ((d_c - thresh_c).abs() <= band)
+    differ = kept.cpu() != kept_c
+    rel = abs(float(thresh) - float(thresh_c)) / abs(float(thresh_c))
+    n_valid, n_db, n_kept = (int(m.sum()) for m in (masks21, db, kept))
+    print(f"[12] DBSCAN masks card vs CPU, {DBSCAN_CHECK_SCANS} scans: "
+          f"{db_diff} differing (CPU {cpu_s:.2f} s); statistical threshold "
+          f"card {float(thresh):.9g} m, CPU {float(thresh_c):.9g} m "
+          f"(relative gap {rel:.3e}); {int(near.sum())} points within "
+          f"{STAT_BAND_RTOL:g} of it, {int(differ.sum())} masks differing; "
+          f"points valid {n_valid}, after DBSCAN {n_db}, kept {n_kept}",
+          flush=True)
+    if db_diff:
+        fail("DBSCAN masks on the card differ from the CPU's")
+    if rel > STAT_BAND_RTOL or bool((differ & ~near).any()):
+        fail("the statistical filter on the card differs from the CPU's "
+             "outside the threshold's band")
+    if not n_valid > n_db > n_kept > 0:
+        fail("a scan filter dropped nothing or everything")
+
+    ends = occupancy.ray_ends(torch.as_tensor(res.poses, device=dev), pts21,
+                              cfg.map)
+    g_plain = occupancy.build_logodds_scatter(ends.cpu(), kept.cpu(),
+                                              cfg.map, res.ray_cells)
+    diff = float((torch.from_numpy(res.logodds) - g_plain).abs().max())
+    same_grid = np.array_equal(res.grid_map,
+                               occupancy.finalize_grid(g_plain).numpy())
+    print(f"[12] filtered map (K={res.ray_cells}) vs plain (CPU scatter of "
+          f"the kept rays): max |diff| {diff}, finalize_grid equal "
+          f"{same_grid}, nonzero cells {int((g_plain != 0).sum())}",
+          flush=True)
+    if diff != 0.0 or not same_grid or int((g_plain != 0).sum()) < 1000:
+        fail("the filtered run's map disagrees with the scatter path")
+    return launches
+
+
+def texture_phase(dev, cfg) -> None:
+    """[13]: the texture of N_RGB_FRAMES frames of 480 x 640, made as
+    bench.py makes them (16 base frames from seed 30 with a per-batch
+    disparity offset, poses N(0, 5)), painted on the 1201 x 1201 map with
+    projector="device": seconds a frame of a timed run after one of
+    TEX_CHECK_FRAMES frames; gate: the card's painted cells and colors over
+    those first frames equal to the same function's on the CPU, bit for
+    bit."""
+    from lidar_slam_tpu_torch.models import texture
+
+    H, W = 480, 640
+    rng = np.random.default_rng(30)
+    base_disp = rng.integers(300, 800, (16, H, W)).astype(np.uint16)
+    base_rgb = rng.integers(0, 255, (16, H, W, 3)).astype(np.uint8)
+    poses = np.asarray(rng.normal(0, 5.0, (N_RGB_FRAMES, 3)), np.float32)
+    grid = np.zeros((cfg.map.width, cfg.map.height), np.uint8)
+
+    def loader(ids):
+        off = np.uint16(int(ids[0]) % 97)
+        return base_disp[:len(ids)] + off, base_rgb[:len(ids)]
+
+    first = np.arange(TEX_CHECK_FRAMES)
+    w_k, c_k = texture.paint_texture(poses, first, loader, cfg.map,
+                                     cfg.camera, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    w_c, c_c = texture.paint_texture(poses, first, loader, cfg.map,
+                                     cfg.camera, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    same = torch.equal(w_k.cpu(), w_c) and torch.equal(c_k.cpu(), c_c)
+    painted = int((w_c >= 0).sum())
+    t0 = time.perf_counter()
+    tex = texture.generate_texture_map(poses, np.arange(N_RGB_FRAMES),
+                                       np.arange(N_RGB_FRAMES), grid, loader,
+                                       cfg.map, cfg.camera, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(tex).all())
+    cells = int((tex != 0).any(-1).sum())
+    print(f"[13] texture, {N_RGB_FRAMES} frames of {H} x {W} on "
+          f"{cfg.map.width} x {cfg.map.height} cells (projector device): "
+          f"{wall:.3f} s, {wall / N_RGB_FRAMES * 1e3:.3f} ms a frame; "
+          f"{cells} cells painted; first {TEX_CHECK_FRAMES} frames card vs "
+          f"CPU: cells and colors equal {same}, {painted} cells painted "
+          f"(CPU {cpu_s:.2f} s)", flush=True)
+    if not same or painted < 1000:
+        fail("the texture painted on the card differs from the CPU's")
+    if not finite or tex.shape != (cfg.map.width, cfg.map.height, 3) \
+            or cells < painted:
+        fail("the texture map is malformed")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -620,6 +778,7 @@ def main() -> int:
     # 5. the main path at dataset-20 scale
     args = synced(io.synthetic_dataset(n_steps=4956, n_rays=1081, seed=21),
                   sensors)
+    log21 = args
     slam.run_slam(*args, mode="gtsam", cfg=cfg, device=dev)  # warm-up
     torch.cuda.synchronize()
     nn_argmin.launches = 0
@@ -1074,8 +1233,13 @@ def main() -> int:
           f"step; shares of device time "
           + ", ".join(f"{k} {v:.3f}" for k, v in share.items()), flush=True)
 
+    # 12. the filtered gtsam run; 13. the texture
+    launches_f = filtered_phase(dev, log21, pts21, masks21, cfg)
+    texture_phase(dev, cfg)
+
     print(card)
-    # launches: the main paths' runs, gtsam [5] plus online [8]
+    # launches: the main paths' runs, gtsam [5] plus online [8]; the
+    # filtered run's [12] apart
     print(json.dumps({"kernels": [
         {"name": "nn_argmin", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/nn.cu",
@@ -1086,7 +1250,8 @@ def main() -> int:
          "bound_by": nn_bound[1], "library_ms": nn_lib_ms,
          "device_ms": dev_nn, "ms_b1": nn1_ms, "plain_ms_b1": nn1_plain_ms,
          "library_ms_b1": nn1_lib_ms, "bound_ms_b1": nn1_bound[0],
-         "device_ms_b1": dev_nn1, "host_us_b1": split["nn_argmin_b1"]},
+         "device_ms_b1": dev_nn1, "host_us_b1": split["nn_argmin_b1"],
+         "launches_filtered": launches_f["nn_argmin"]},
         # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
@@ -1097,7 +1262,8 @@ def main() -> int:
          "ms": rw_ms, "plain_ms": rw_plain_ms, "bound_ms": rw_bound[0],
          "bound_by": rw_bound[1], "library_ms": None, "device_ms": dev_k1,
          "device_ms_bin": k1_ms["bin"], "device_ms_walk": k1_ms["walk"],
-         "owner_side": OWNER_SIDE, "hot_crossings": hot},
+         "owner_side": OWNER_SIDE, "hot_crossings": hot,
+         "launches_filtered": launches_f["raywalk_build"]},
         {"name": "raywalk_scan", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
          "replaces": "lidar_slam_tpu/ops/raywalk.py:461",

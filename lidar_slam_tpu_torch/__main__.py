@@ -7,17 +7,22 @@ plus --device. It writes main.py's stage artifacts under the same names in
 --output_dir (poses_odom_<d>.npy, relative_poses_odom_<d>.npy,
 poses_scan_matching_<d>.npy, relative_poses_scan_matching_<d>.npy,
 poses_optimized_<d>.npy), builds the log-odds map only when main.py does
-(--generate_texture_map, --save_logodds or --export_ros_map) and writes it
-only to --save_logodds. --load_poses X.npy rebuilds the map from saved
-poses and skips pose estimation and the stage artifacts.
+(--generate_texture_map, --save_logodds or --export_ros_map) and writes
+the grid only to --save_logodds. --load_poses X.npy rebuilds the map from
+saved poses and skips pose estimation and the stage artifacts.
+--filter_lidar runs the scan filters first. --generate_texture_map writes
+the log-odds PNG and, on a dataset on disk (its frames under dataRGBD/ in
+the working directory), the texture map PNG, under main.py's image paths
+(images/ or images_filtered/, suffixed _<mode>_<d>.png); the texture is
+painted on --device (main.py's "auto" engine may take its native host
+projector, which the port does not have).
 
 Flags of capabilities that are not ported yet parse and then exit nonzero
-with "not yet ported": --filter_lidar, --generate_texture_map,
---synthetic_revisit N > 0, --loop_proposer proximity|descriptor,
---robust_loss huber|cauchy, --proximity_seed estimate, --proximity_trim
-other than 1.0, --icp_metric point_to_line, --export_ros_map and
---export_tum. --synthetic_laps, --logodds_map_path and --texture_map_path
-are accepted: as in main.py, only refused flags read them.
+with "not yet ported": --synthetic_revisit N > 0, --loop_proposer
+proximity|descriptor, --robust_loss huber|cauchy, --proximity_seed
+estimate, --proximity_trim other than 1.0, --icp_metric point_to_line,
+--export_ros_map and --export_tum. --synthetic_laps is accepted: as in
+main.py, only a refused flag reads it.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["odom", "scan_matching", "gtsam"],
                    help="The mode to use for pose estimation")
     p.add_argument("--filter_lidar", action="store_true",
-                   help="Filter the lidar data (not yet ported)")
+                   help="Filter the lidar data")
     p.add_argument("--fixed_interval", type=int, default=10,
                    help="The fixed interval for loop closure")
     p.add_argument("--dataset", type=int, default=20,
@@ -55,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="texture_map.png",
                    help="The path to save the texture map")
     p.add_argument("--generate_texture_map", action="store_true",
-                   help="Generate the texture map (not yet ported)")
+                   help="Generate the texture map")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="Run on an N-step synthetic dataset instead of "
                         "reading npz files")
@@ -98,11 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> list[str]:
     out = []
-    if args.filter_lidar:
-        out.append("--filter_lidar"
-                   + (" (with --load_poses)" if args.load_poses else ""))
-    if args.generate_texture_map:
-        out.append("--generate_texture_map")
     if args.synthetic_revisit > 0:
         out.append("--synthetic_revisit")
     if args.loop_proposer != "fixed":
@@ -124,8 +124,7 @@ def _unported(args) -> list[str]:
 
 def image_paths(args) -> tuple[str, str]:
     """(log-odds map PNG, texture map PNG) as main.py derives them
-    (main.py:153-160); --generate_texture_map writes them once texture is
-    ported."""
+    (main.py:153-160); --generate_texture_map writes them."""
     img_dir = "images_filtered/" if args.filter_lidar else "images/"
     suffix = f"_{args.mode}_{args.dataset}.png"
     return tuple(img_dir + path.split(".")[0] + suffix
@@ -174,6 +173,7 @@ def main(argv=None) -> int:
         result = slam.run_slam(
             encoder.counts_synced, imu.gyro_synced, lidar.ranges_synced,
             float(lidar.range_min), float(lidar.range_max), mode=args.mode,
+            filter_lidar=args.filter_lidar,
             fixed_interval=args.fixed_interval, cfg=cfg,
             build_map=build_map, device=device)
         _save_stage_artifacts(io, result, args.output_dir, d)
@@ -182,7 +182,36 @@ def main(argv=None) -> int:
         print(f"log-odds grid saved at {args.save_logodds}")
     print("stage seconds: " + ", ".join(
         f"{k} {v:.3f}" for k, v in result.stage_seconds.items()))
+    if args.generate_texture_map:
+        _generate_maps(args, cfg, result, data, encoder, device)
     return 0
+
+
+def _generate_maps(args, cfg, result, data, encoder, device) -> None:
+    """main.py's _generate_maps: the log-odds PNG (occupancy.py's
+    OccupancyGridMap.plot_log_odds_map), then the texture map of the
+    dataset's RGB-D frames at the final poses."""
+    from . import sensors
+    from .models import occupancy, texture
+    from .utils.png import write_png
+
+    logodds_path, texture_path = image_paths(args)
+    write_png(logodds_path, occupancy.render_logodds(result.logodds))
+    print(f"Occupancy (logodds) map saved at: {logodds_path}")
+    kinect = sensors.Kinect.from_data(data["rgbd"])
+    rgb_pose_idx = sensors.Kinect.get_closest_stamps(encoder.stamps,
+                                                     kinect.rgb_stamps)
+    disp_for_rgb = sensors.Kinect.get_closest_stamps(kinect.disp_stamps,
+                                                     kinect.rgb_stamps)
+    if args.synthetic:
+        print("(no RGBD frames for synthetic data; skipping texture)")
+        return
+    tex = texture.generate_texture_map(
+        result.poses, rgb_pose_idx, disp_for_rgb, result.grid_map,
+        texture.disk_frame_loader(args.dataset, disp_for_rgb), cfg.map,
+        cfg.camera, device=device)
+    texture.plot_texture_map(tex, texture_path)
+    print(f"Texture map saved at: {texture_path}")
 
 
 def _save_stage_artifacts(io, result, out: str, d: int) -> None:

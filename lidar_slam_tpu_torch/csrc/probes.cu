@@ -21,11 +21,10 @@
 // (update order, segment order or emit order). P1-P4 and P9: the TPU tiles
 // are (8, 128) or (64, 128), always at offsets that are multiples of the
 // tile, so a cell has one tile-local position (s, l) whatever tile covers
-// it. In P1 the thread that owns (s, l) does every add to the cells at
-// that position, in order; in P9 a thread owns one cell of one tile
-// position and does its adds. No other thread touches them, so each
-// cell's float32 sum is the sequential one. P5 folds in index order in
-// one warp. The TPU's masked RMW also adds
+// it. In P9 a thread owns one cell of one tile position and does its
+// adds. No other thread touches them, so each cell's float32 sum is the
+// sequential one. P1 and P5 fold in index order in one warp (P1's tile
+// cells all hold the same fold). The TPU's masked RMW also adds
 // 0.0 to the rest of the tile; x + 0.0 == x for every x except -0.0 and
 // NaN, which no probe's grid holds (it starts at +0.0 or at finite random
 // values, and a round-to-nearest sum of nonzero terms is never -0.0), so
@@ -42,7 +41,8 @@
 // microsecond; what it measures is the cost of a masked (64, 128) tile
 // visit, spread over the card.
 //
-// Designs. P1: one block of 1,024 threads, one per (8, 128) position.
+// Designs. P1: 16-byte stores over several blocks; the blocks whose cells
+// hold tile cells fold the entries in one warp first (see "P1" below).
 // P2-P4: a block for each (8, 128) tile position, counting (see "P2, P3,
 // P4" below). P5: one warp, an in-order fold. P6: 16-byte stores from
 // the first 16-byte boundary (a scalar head before it and a scalar tail
@@ -72,21 +72,6 @@ constexpr int SEG_THREADS = 256;  // P8's block
 
 enum VpuMode { RMW = 0, VEC = 1, FULL = 2, FULLV = 3, RAY1 = 4, RAY2 = 5 };
 
-__device__ __forceinline__ void add_cell(float* __restrict__ g, int W, int H,
-                                         int x, int y, float v) {
-  if (x >= 0 && x < W && y >= 0 && y < H) {
-    float* p = g + (size_t)x * H + y;
-    *p = __fadd_rn(*p, v);
-  }
-}
-
-// P1: thread (s, l) zeroes every cell it owns.
-__device__ __forceinline__ void zero_owned(float* __restrict__ out, int W,
-                                           int H, int s, int l) {
-  for (int x = s; x < W; x += TS)
-    for (int y = l; y < H; y += TL) out[(size_t)x * H + y] = 0.f;
-}
-
 // S_k: k sequential __fadd_rn of val from +0.0 (P4, P8).
 __device__ __forceinline__ float k_fold_sum(int k, float val) {
   float acc = 0.f;
@@ -94,13 +79,92 @@ __device__ __forceinline__ float k_fold_sum(int k, float val) {
   return acc;
 }
 
-// P1: the static tile [0, 8) x [0, 128) += xs[i], i in order.
-__global__ void __launch_bounds__(TILE_THREADS)
+// The in-order float32 fold ((+0.0 + xs[0]) + xs[1]) + ... of xs, by the
+// 32 lanes of one warp (P1, P5): lane j loads entry j of each chunk of 32
+// (coalesced; the next chunk's load in flight while this one is folded),
+// and every lane folds the chunk's values in lane order, each broadcast by
+// __shfl_sync, so the sum is the sequential one, bit for bit. Every lane
+// returns it. +0.0 + -0.0 is +0.0, as in the plain versions.
+__device__ __forceinline__ float warp_fold(const float* __restrict__ xs,
+                                           int n) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  float v = lane < n ? xs[lane] : 0.f;
+  for (int left = n; left > 0; left -= 32, xs += 32) {
+    const float next = lane + 32 < left ? xs[lane + 32] : 0.f;
+    if (left >= 32) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        acc = __fadd_rn(acc, __shfl_sync(ALL_LANES, v, j));
+    } else {
+      for (int j = 0; j < left; ++j)
+        acc = __fadd_rn(acc, __shfl_sync(ALL_LANES, v, j));
+    }
+    v = next;
+  }
+  return acc;
+}
+
+// -- P1: fold once, then write --------------------------------------------
+//
+// Replaced: pallas_probe.py::v1_smem_stream (:38), the static tile
+// [0, 8) x [0, 128) of a VMEM-resident zero grid += xs[i] for every i in
+// order, a scalar read from SMEM a step. Every tile cell takes the same
+// adds from +0.0, so each holds the in-order fold of xs and every other
+// cell +0.0. Bound on an H100: bytes, the entries read once and the
+// 64 x 256 grid written once (0.00002 ms at the tool's 64 entries), so the
+// launch floor; past a few hundred entries the chain of n dependent adds
+// (about 5 ns each, as P5's). The one-block design zeroed the grid itself
+// and then made n dependent global read-add-writes of 16 cells a thread.
+//
+// Here a float4 a thread, P1_THREADS a block, over the W x H grid (W * H a
+// multiple of 4). A block whose cells hold no tile cell writes its zeros at
+// once; a block whose cells do (two on the 64 x 256 grid) folds the
+// entries in its first warp (warp_fold; n adds, no grid barrier: each such
+// block folds them itself), passes the sum through shared memory, and
+// writes it to its tile cells and zeros to the rest.
+constexpr int P1_THREADS = 256;
+
+// Whether the cells [c0, c1) of a W x H grid hold a cell of the static
+// tile [0, 8) x [0, 128); the same for every thread of a block.
+__device__ __forceinline__ bool holds_tile(long long c0, long long c1, int W,
+                                           int H) {
+  const int tw = W < TS ? W : TS, th = H < TL ? H : TL;
+  for (long long x = c0 / H; x < tw && x * H < c1; ++x)
+    if (x * H + th > c0) return true;
+  return false;
+}
+
+__global__ void __launch_bounds__(P1_THREADS)
 smem_stream_kernel(const float* __restrict__ xs, int n,
                    float* __restrict__ out, int W, int H) {
-  const int s = threadIdx.x / TL, l = threadIdx.x % TL;
-  zero_owned(out, W, H, s, l);
-  for (int i = 0; i < n; ++i) add_cell(out, W, H, s, l, xs[i]);
+  __shared__ float sum;
+  const long long cells = (long long)W * H;
+  const long long e = (long long)blockIdx.x * P1_THREADS + threadIdx.x;
+  const long long c0 = (long long)blockIdx.x * P1_THREADS * 4;
+  const long long c1 = c0 + 4LL * P1_THREADS < cells ? c0 + 4LL * P1_THREADS
+                                                     : cells;
+  float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (holds_tile(c0, c1, W, H)) {
+    if (threadIdx.x < 32) {
+      const float acc = warp_fold(xs, n);
+      if (threadIdx.x == 0) sum = acc;
+    }
+    __syncthreads();
+    const float v = sum;
+    if (4 * e < cells) {
+      const int x = (int)(4 * e / H), y = (int)(4 * e % H);
+      // H % 4 == 0 is not assumed: a float4 may end past its row
+      float f[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int yk = y + k, xk = x + yk / H;
+        f[k] = xk < TS && yk % H < TL ? v : 0.f;
+      }
+      q = make_float4(f[0], f[1], f[2], f[3]);
+    }
+  }
+  if (4 * e < cells) reinterpret_cast<float4*>(out)[e] = q;
 }
 
 // -- P2, P3, P4: count, then write once ----------------------------------
@@ -208,33 +272,16 @@ masked_tile_kernel(const int32_t* __restrict__ xs,
 // P5: the in-order float32 sum of xs. Replaced:
 // pallas_probe.py::v5_vmem_scalar_read (:159), a scalar fori_loop over a
 // VMEM ref. Bound: one dependent add after another; at the tool's 32
-// entries the launch floor. One warp: lane j loads entry j of each chunk
-// of 32 (coalesced; the next chunk's load in flight while this one is
-// folded), and every lane folds the chunk's values in lane order, each
-// broadcast by __shfl_sync, so the sum is the sequential one, bit for bit.
-// Past the floor the chain of dependent adds bounds it, about 5 ns an add
-// on an H100 (a fold from shared memory is no faster; one thread loading
-// as it adds, the one-thread design, is 2.3x slower).
+// entries the launch floor. One warp folds them (warp_fold). Past the
+// floor the chain of dependent adds bounds it, about 5 ns an add on an
+// H100 (a fold from shared memory is no faster; one thread loading as it
+// adds, the one-thread design, is 2.3x slower).
 
 __global__ void __launch_bounds__(32)
 scalar_sum_kernel(const float* __restrict__ xs, int n,
                   float* __restrict__ out) {
-  const int lane = threadIdx.x;
-  float acc = 0.f;
-  float v = lane < n ? xs[lane] : 0.f;
-  for (int left = n; left > 0; left -= 32, xs += 32) {
-    const float next = lane + 32 < left ? xs[lane + 32] : 0.f;
-    if (left >= 32) {
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-        acc = __fadd_rn(acc, __shfl_sync(ALL_LANES, v, j));
-    } else {
-      for (int j = 0; j < left; ++j)
-        acc = __fadd_rn(acc, __shfl_sync(ALL_LANES, v, j));
-    }
-    v = next;
-  }
-  if (lane == 0) out[0] = acc;
+  const float acc = warp_fold(xs, n);
+  if (threadIdx.x == 0) out[0] = acc;
 }
 
 // P6: out[0, n) = val. The `head` elements before the first 16-byte
@@ -979,12 +1026,18 @@ int tile_rmw_launch(const int32_t* xs, const int32_t* ys, const float* vs,
 
 }  // namespace
 
-// P1-P4: inputs of n entries, output (W, H) float32, written whole. P1:
-// one block; P2-P4: a block for each (8, 128) tile position. Each entry
-// point launches on `stream` and returns cudaGetLastError() of the launch.
+// P1-P4: inputs of n entries, output (W, H) float32, written whole. P1: a
+// float4 a thread, W * H a multiple of 4 and out 16-byte aligned; P2-P4: a
+// block for each (8, 128) tile position. Each entry point launches on
+// `stream` and returns cudaGetLastError() of the launch.
 extern "C" int slam_probe_smem_stream(const void* xs, int n, void* out, int W,
                                       int H, void* stream) {
-  smem_stream_kernel<<<1, TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  const long long cells = (long long)W * H;
+  if (n < 0 || W <= 0 || H <= 0 || cells % 4 || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (cells / 4 + P1_THREADS - 1) / P1_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  smem_stream_kernel<<<(int)blocks, P1_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)xs, n, (float*)out, W, H);
   return last_error();
 }

@@ -107,11 +107,13 @@ def _zeros(shape, device) -> torch.Tensor:
 
 # -- P1-P4 (tools/pallas_probe.py v1-v4), output PROBE_SHAPE ---------------
 #
-# P1's kernel is one block. P2-P4's add one value a probe into a zero grid,
-# so a cell's sum depends only on its hit count k: each (8, 128) tile
-# position's block counts its hits in integers and writes each cell's S_k
-# once. The *_design functions are those designs in PyTorch, for the CPU
-# tests.
+# P1's tile cells all take the same adds from +0.0, so each holds the
+# in-order fold of the entries: the blocks that hold tile cells fold them
+# once in a warp, and every block writes its cells once. P2-P4's add one
+# value a probe into a zero grid, so a cell's sum depends only on its hit
+# count k: each (8, 128) tile position's block counts its hits in integers
+# and writes each cell's S_k once. The *_design functions are those
+# designs in PyTorch, for the CPU tests.
 
 def smem_stream_cells(xs: torch.Tensor):
     s, l = _tile_iota(xs.device)
@@ -125,9 +127,23 @@ def smem_stream_plain(xs: torch.Tensor) -> torch.Tensor:
                          *smem_stream_cells(xs))
 
 
+def smem_stream_design(xs: torch.Tensor) -> torch.Tensor:
+    """P1 by its kernel's design: every tile cell takes xs[0], xs[1], ...
+    in order from +0.0, so each holds the in-order fold of xs (P5's,
+    scalar_sum_plain), and every other cell +0.0. The kernel folds xs once
+    in one warp of each block that holds tile cells and writes every cell
+    once."""
+    out = _zeros(PROBE_SHAPE, xs.device)
+    out[:TS, :LANES] = scalar_sum_plain(xs)
+    return out
+
+
 def smem_stream(xs: torch.Tensor) -> torch.Tensor:
     """P1: a zero (64, 256) grid whose static tile [0, 8) x [0, 128) gets
-    xs[i] added for every i in order. xs (n,) float32."""
+    xs[i] added for every i in order. xs (n,) float32. On the card: a
+    float4 a thread over the grid; the blocks holding tile cells fold xs in
+    index order in one warp and write the fold to them
+    (smem_stream_design; csrc/probes.cu)."""
     if not xs.is_cuda:
         return smem_stream_plain(xs)
     index = xs.get_device()

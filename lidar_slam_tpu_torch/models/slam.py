@@ -1,9 +1,10 @@
 """End-to-end SLAM pipeline.
 
 Counterpart of lidar_slam_tpu/models/slam.py::run_slam for the reference's
-main path (main.py --mode {odom, scan_matching, gtsam} with fixed-interval
-loop closures): scan prep -> odometry -> [batched scan matching] ->
-[fixed-interval loop-closure ICPs + banded pose-graph LM] -> log-odds map.
+main path (main.py --mode {odom, scan_matching, gtsam} [--filter_lidar]
+with fixed-interval loop closures): scan prep -> [scan filters] ->
+odometry -> [batched scan matching] -> [fixed-interval loop-closure ICPs +
+banded pose-graph LM] -> log-odds map.
 
 The stages run on the device given to run_slam. Each stage ends by copying
 its result to the host (SlamResult holds numpy arrays, like the JAX
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
+from ..ops import filters
 from ..ops import icp as icp_ops
 from ..ops import scan as scan_ops
 from ..utils import se2
@@ -99,19 +101,28 @@ def compute_loop_closures(points3, masks, cand: np.ndarray,
                                        chunk_size=chunk_size)
 
 
-def _check_supported(mode: str, filter_lidar: bool, cfg: SlamConfig) -> None:
+def _check_supported(mode: str, cfg: SlamConfig) -> None:
     """Refuse what run_slam itself does not run yet; the stages refuse
     their own unported options (ICP metric, pose-graph solver and robust
     loss)."""
     if mode not in ("odom", "scan_matching", "gtsam"):
         raise ValueError(f"unknown mode {mode!r}; known: odom, "
                          "scan_matching, gtsam")
-    if filter_lidar:
-        raise NotImplementedError("filter_lidar is not yet ported")
     if cfg.pose_graph.loop_proposer != "fixed":
         raise NotImplementedError(
             f"loop_proposer {cfg.pose_graph.loop_proposer!r} is not yet "
             "ported (only 'fixed')")
+
+
+def filter_scans(points: torch.Tensor, masks: torch.Tensor,
+                 cfg: SlamConfig) -> torch.Tensor:
+    """main.py --filter_lidar: the DBSCAN outlier filter, then the pooled
+    statistical range filter, as masks (ops/filters.py)."""
+    masks = filters.dbscan_filter_scans(
+        points, masks, eps=cfg.filter.dbscan_eps,
+        min_samples=cfg.filter.dbscan_min_samples)
+    return filters.statistical_filter_scans(
+        points, masks, k_std=cfg.filter.statistical_k_std)
 
 
 def resolve_device(device) -> torch.device:
@@ -144,9 +155,10 @@ def run_slam(
     counts (N, 4) encoder, gyro (N, 3), ranges (N, n_rays) synchronized
     lidar (numpy arrays or tensors), computed on `device` in `dtype`
     (float32 on the GPU path: the NN kernel takes float32). Modes mirror the
-    reference CLI: 'odom', 'scan_matching', 'gtsam'.
+    reference CLI: 'odom', 'scan_matching', 'gtsam'. filter_lidar runs the
+    scan filters on the masks first (filter_scans; stage "filter").
     """
-    _check_supported(mode, filter_lidar, cfg)
+    _check_supported(mode, cfg)
     dev = resolve_device(device)
     stage = {}
     t0 = time.perf_counter()
@@ -155,6 +167,13 @@ def run_slam(
                             for a in (counts, gyro, ranges))
     points, masks = scan_ops.scans_to_points(ranges, range_min, range_max,
                                              cfg.lidar)
+    if filter_lidar:
+        t_f = time.perf_counter()
+        masks = filter_scans(points, masks, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stage["filter"] = time.perf_counter() - t_f
+        t0 += stage["filter"]
     max_distance, max_yaw_deg = odometry.max_step_gates(counts, gyro,
                                                         cfg.robot.dt)
     poses_odom, rel_odom = odometry.poses_from_odometry(
@@ -240,17 +259,17 @@ def resume_from_poses(
 
     Counterpart of lidar_slam_tpu/models/slam.py::resume_from_poses: the
     poses become poses_odom and poses, their relative transforms
-    relative_poses_odom, and the map is built as run_slam builds it, in
-    float32 on `device`.
+    relative_poses_odom, and the map is built as run_slam builds it (with
+    the scan filters under filter_lidar), in float32 on `device`.
     """
-    if filter_lidar:
-        raise NotImplementedError("filter_lidar is not yet ported")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     poses, ranges = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                      for a in (poses, ranges))
     points, masks = scan_ops.scans_to_points(ranges, range_min, range_max,
                                              cfg.lidar)
+    if filter_lidar:
+        masks = filter_scans(points, masks, cfg)
     host = poses.cpu().numpy()
     result = SlamResult(
         poses_odom=host,

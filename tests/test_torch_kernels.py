@@ -541,6 +541,33 @@ def test_construct_probe_bit_exact(dev, name):
     _same_bits(got, pallas_probe.call(name, "cpu"))
 
 
+@pytest.mark.parametrize("case,n", [
+    ("mixed", 0), ("mixed", 1), ("mixed", 31), ("mixed", 33),
+    ("mixed", 64), ("alternating", 4096), ("mixed", 4096),
+    ("negative_zero", 64)])
+def test_smem_stream_bit_exact(dev, case, n):
+    """P1 against its plain version: every tile cell the in-order fold of
+    the entries (signs and magnitudes 1e-3 to 1e8, or [1e8, 1, -1e8, 1]
+    repeated, whose in-order sum is 1.0), or +0.0 from entries of -0.0;
+    every other cell +0.0."""
+    rng = np.random.default_rng(n + 3)
+    if case == "alternating":
+        xs = np.tile(np.float32([1e8, 1.0, -1e8, 1.0]), n // 4)
+    elif case == "negative_zero":
+        xs = np.full(n, -0.0, np.float32)
+    else:
+        xs = (rng.choice([-1.0, 1.0], n)
+              * 10.0 ** rng.uniform(-3, 8, n)).astype(np.float32)
+    xs = torch.from_numpy(xs)
+    before = probes.smem_stream.launches
+    got = probes.smem_stream(xs.to(dev))
+    torch.cuda.synchronize()
+    assert probes.smem_stream.launches == before + 1
+    _same_bits(got, probes.smem_stream_plain(xs))
+    if case == "alternating":
+        assert float(got[0, 0]) == 1.0
+
+
 def _tile_entries(case: str, n: int):
     """(xs, ys) CPU int32 tensors of one P2-P4 case of n entries."""
     rng = np.random.default_rng(n + 11)

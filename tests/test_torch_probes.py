@@ -288,6 +288,51 @@ def test_scalar_sum_equals_jax_in_order(tools_env, case, n):
         assert float(want[0, 0]) == 1.0 and pairwise != 1.0
 
 
+def _smem_entries(case: str) -> np.ndarray:
+    """P1's entries: the JAX tool's, 4,096 order-sensitive ones, or 64
+    entries of -0.0 (the fold from +0.0 gives +0.0, a fold that started
+    from the first entry -0.0)."""
+    if case == "tool":
+        return tpp.inputs("v1_smem_stream")[0]
+    if case == "negative_zero":
+        return np.full(64, -0.0, np.float32)
+    if case == "empty":
+        return np.zeros(0, np.float32)
+    return _order_sensitive(case, 4096)
+
+
+SMEM_CASES = ["tool", "alternating", "mixed", "cancelling", "negative_zero"]
+
+
+@pytest.mark.parametrize("case", SMEM_CASES + ["empty"])
+def test_smem_stream_design_equals_plain(case):
+    """P1's kernel design (one in-order fold written to every tile cell)
+    against its plain version (every add of every tile cell, in order), bit
+    for bit; on two of the order-sensitive cases a tree sum gives another
+    tile."""
+    xs = torch.from_numpy(_smem_entries(case))
+    want = probes.smem_stream_plain(xs)
+    got = probes.smem_stream_design(xs)
+    _bits_equal(got, want.numpy())
+    assert not want[probes.TS:].any() and not want[:, probes.LANES:].any()
+    if case in ("alternating", "mixed"):
+        assert float(xs.sum()) != float(want[0, 0])
+    if case == "negative_zero":
+        assert not torch.signbit(want).any()
+    if case == "alternating":
+        assert float(want[7, 127]) == 1.0
+
+
+@pytest.mark.parametrize("case", SMEM_CASES)
+def test_smem_stream_design_equals_jax(tools_env, case):
+    """P1's kernel design against the JAX tool's v1 in interpret mode (two
+    grid steps of n / 2 entries), bit for bit."""
+    xs = _smem_entries(case)
+    want = _jax_probe(tools_env, "v1_smem_stream", (xs,), len(xs) // 2)
+    _bits_equal(probes.smem_stream_design(torch.from_numpy(xs)), want)
+    assert want.shape == probes.PROBE_SHAPE
+
+
 @pytest.fixture(scope="module")
 def jax_scatter(tools_env):
     return tools_env[2]("scatter_microbench")

@@ -252,7 +252,7 @@ def test_cli_load_poses_matches_jax_resume(tmp_path, monkeypatch):
 def test_resume_from_poses_matches_jax(log):
     """resume_from_poses against the JAX function on the same float32
     poses and ranges: relative poses within the pipeline bound, the map bit
-    for bit; filter_lidar refused; build_map=False builds nothing."""
+    for bit; build_map=False builds nothing."""
     counts, gyro, ranges = (a[:40].astype(np.float32) for a in log)
     poses = jodo.poses_from_odometry(jnp.asarray(counts),
                                      jnp.asarray(gyro))
@@ -270,9 +270,6 @@ def test_resume_from_poses_matches_jax(log):
     bare = tslam.resume_from_poses(poses, ranges, 0.1, 30.0, cfg=_cfg(tc),
                                    build_map=False, device="cpu")
     assert bare.logodds is None and bare.grid_map is None
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tslam.resume_from_poses(poses, ranges, 0.1, 30.0, filter_lidar=True,
-                                device="cpu")
 
 
 def test_cli_image_paths_follow_main_py():
@@ -288,18 +285,14 @@ def test_cli_image_paths_follow_main_py():
         "images_filtered/a_odom_21.png", "images_filtered/t_odom_21.png")
 
 
-@pytest.mark.parametrize("flags", [["--filter_lidar"],
-                                   ["--generate_texture_map"],
-                                   ["--loop_proposer", "proximity"],
+@pytest.mark.parametrize("flags", [["--loop_proposer", "proximity"],
                                    ["--robust_loss", "huber"],
                                    ["--icp_metric", "point_to_line"],
                                    ["--synthetic_revisit", "50"],
                                    ["--proximity_seed", "estimate"],
                                    ["--proximity_trim", "0.55"],
                                    ["--export_ros_map", "m"],
-                                   ["--export_tum", "t.txt"],
-                                   ["--load_poses", "p.npy",
-                                    "--filter_lidar"]])
+                                   ["--export_tum", "t.txt"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as e:
         cli_main(["--synthetic", "10", "--device", "cpu"] + flags)
@@ -309,8 +302,6 @@ def test_cli_refuses_unported_flags(flags, capsys):
 
 def test_unported_run_slam_options_raise(log):
     counts, gyro, ranges = (a[:20] for a in log)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, filter_lidar=True)
     import dataclasses
     cfg = _cfg(tc)
     bad = dataclasses.replace(cfg, pose_graph=dataclasses.replace(
@@ -347,3 +338,185 @@ def test_cuda_device_raises_without_cuda(log, tmp_path):
     ton.save_state(path, st)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ton.load_state(path)
+
+
+# main.py's filter settings (eps = 0.1 m) need full 1,081-ray scans: DBSCAN
+# marks nearly every point of a sparser scan as noise. At full width the
+# port's and JAX's scan-matching poses part by up to 4e-3 whether or not
+# the filters run (float32 near-ties and scan points a ULP apart), so the
+# filtered gtsam path is held to POSE_TOL on the file's 181-ray log with
+# settings scaled to its ray spacing, and the CLI at full width in odom
+# mode.
+FULL_RAYS = 1081
+SPARSE_FILTER = dict(dbscan_eps=0.7, dbscan_min_samples=5,
+                     statistical_k_std=1.0)
+
+
+def _synced_log(n_steps, seed):
+    from lidar_slam_tpu_torch import sensors as tsens
+    from lidar_slam_tpu_torch.utils import io as tio
+
+    d = tio.synthetic_dataset(n_steps=n_steps, n_rays=FULL_RAYS, seed=seed)
+    enc = tsens.Encoder.from_data(d["encoder"])
+    lid = tsens.Lidar.from_data(d["lidar"])
+    imu = tsens.Imu.from_data(d["imu"])
+    tsens.synchronize_sensors(enc, imu, lid, base_sensor_index=0)
+    return (enc.counts_synced.astype(np.float32),
+            imu.gyro_synced.astype(np.float32),
+            lid.ranges_synced.astype(np.float32))
+
+
+def test_run_slam_filter_lidar_matches_jax(log):
+    """run_slam(mode="gtsam", filter_lidar=True) against JAX's on the
+    181-ray log: the filtered masks equal, poses within POSE_TOL, the same
+    loop decisions, and the port's map from the JAX poses equal to the JAX
+    map bit for bit; both filters dropped points."""
+    import dataclasses
+
+    arrays = tuple(a.astype(np.float32) for a in log)
+    cfg_j = dataclasses.replace(_cfg(jc),
+                                filter=jc.FilterConfig(**SPARSE_FILTER))
+    cfg_t = dataclasses.replace(_cfg(tc),
+                                filter=tc.FilterConfig(**SPARSE_FILTER))
+    jr = jslam.run_slam(*arrays, 0.1, 30.0, mode="gtsam", filter_lidar=True,
+                        cfg=cfg_j, chunk_size=CHUNK)
+    tr = tslam.run_slam(*arrays, 0.1, 30.0, mode="gtsam", filter_lidar=True,
+                        cfg=cfg_t, chunk_size=CHUNK, device="cpu")
+    assert "filter" in tr.stage_seconds
+    for name in ("poses_odom", "poses_scan_matching", "poses_optimized"):
+        np.testing.assert_allclose(getattr(tr, name), getattr(jr, name),
+                                   rtol=0, atol=POSE_TOL, err_msg=name)
+    assert tr.n_loop_closures == jr.n_loop_closures
+    pts, masks = tscan.scans_to_points(torch.from_numpy(arrays[2]), 0.1,
+                                       30.0, cfg_t.lidar)
+    kept = tslam.filter_scans(pts, masks, cfg_t)
+    jpts, jmasks = jscan.scans_to_points(jnp.asarray(arrays[2]), 0.1, 30.0,
+                                         cfg_j.lidar)
+    from lidar_slam_tpu.ops import filters as jf
+
+    jdb = jf.dbscan_filter_scans(jpts, jmasks, eps=0.7, min_samples=5)
+    np.testing.assert_array_equal(
+        kept.numpy(), np.asarray(jf.statistical_filter_scans(jpts, jdb,
+                                                             k_std=1.0)))
+    assert int(masks.sum()) > int(jdb.sum()) > int(kept.sum()) > 0
+    g = tocc.build_logodds(interop.from_numpy(jr.poses), pts, kept,
+                           cfg_t.map, tr.ray_cells)
+    np.testing.assert_array_equal(g.numpy(), jr.logodds)
+    assert (tr.grid_map != jr.grid_map).mean() < 1e-3
+
+
+def test_cli_filter_lidar_matches_main_py(tmp_path, monkeypatch):
+    """--filter_lidar at main.py's settings on the same on-disk full-width
+    dataset (odom mode): the port's stage artifacts within the odometry
+    bound (1e-6) of main.py's, and its map within the file's own-poses
+    bound (1e-3 of the cells)."""
+    import main as jax_main
+    from tests.test_driver_oracle import _write_dataset
+
+    data = str(tmp_path / "data")
+    _write_dataset(data, n_steps=40, n_rays=FULL_RAYS)
+    monkeypatch.chdir(tmp_path)
+    common = ["--filter_lidar", "--dataset_path", data, *SMALL_MAP]
+    jax_main.main(common + ["--output_dir", "jax", "--save_logodds",
+                            "jax.npy"])
+    assert cli_main(common + ["--output_dir", "port", "--save_logodds",
+                              "port.npy", "--device", "cpu"]) == 0
+    want = sorted(os.listdir(tmp_path / "jax"))
+    assert len(want) == 2 and sorted(os.listdir(tmp_path / "port")) == want
+    for name in want:
+        np.testing.assert_allclose(np.load(tmp_path / "port" / name),
+                                   np.load(tmp_path / "jax" / name), rtol=0,
+                                   atol=1e-6, err_msg=name)
+    got, ref = (tocc.finalize_grid(torch.from_numpy(np.load(f))).numpy()
+                for f in ("port.npy", "jax.npy"))
+    assert (got != ref).mean() < 1e-3 and (got == 0).sum() > 100
+
+
+def test_cli_load_poses_filter_lidar_matches_jax_resume(tmp_path,
+                                                        monkeypatch,
+                                                        capsys):
+    """--load_poses --filter_lidar --generate_texture_map --synthetic 40:
+    the grid of JAX main.py's resume bit for bit, its log-odds PNG byte for
+    byte at main.py's path, and main.py's "skipping texture" line."""
+    import main as jax_main
+
+    monkeypatch.chdir(tmp_path)
+    poses = jodo.poses_from_odometry(
+        *(jnp.asarray(a) for a in _synced_log(40, 0)[:2]))
+    np.save("poses.npy", np.asarray(poses, np.float32))
+    common = ["--synthetic", "40", "--load_poses", "poses.npy",
+              "--filter_lidar", "--generate_texture_map", *SMALL_MAP]
+    jax_main.main(common + ["--save_logodds", "jax.npy"])
+    png = tmp_path / "images_filtered" / "logodds_map_odom_20.png"
+    want_png = png.read_bytes()
+    png.unlink()
+    capsys.readouterr()
+    assert cli_main(common + ["--save_logodds", "port.npy", "--device",
+                              "cpu"]) == 0
+    assert "skipping texture" in capsys.readouterr().out
+    got, want = np.load("port.npy"), np.load("jax.npy")
+    np.testing.assert_array_equal(got, want)
+    assert (got < 0).sum() > 100
+    assert png.read_bytes() == want_png
+    unfiltered = tslam.resume_from_poses(
+        np.load("poses.npy"), _synced_log(40, 0)[2], 0.1, 30.0,
+        cfg=tc.SlamConfig(map=tc.MapConfig.from_cli(0.25, 40, 40)),
+        device="cpu")
+    assert not np.array_equal(unfiltered.logodds, got)
+
+
+def test_cli_generate_texture_map_matches_jax(tmp_path, monkeypatch):
+    """--generate_texture_map on a dataset on disk with its RGB-D frames
+    (dataRGBD/, 480 x 640): the log-odds PNG byte for byte as JAX main.py
+    writes it from the same poses, and the texture PNG that of JAX's
+    generate_texture_map(projector="device") on the same frames, poses and
+    grid."""
+    import main as jax_main
+    from lidar_slam_tpu import sensors as jsens
+    from lidar_slam_tpu.models import occupancy as jocc
+    from lidar_slam_tpu.models import texture as jtex
+    from lidar_slam_tpu_torch.utils.png import write_png
+    from tests.test_driver_oracle import _write_dataset
+
+    data = str(tmp_path / "data")
+    n_rgb = 3
+    _write_dataset(data, n_steps=40, n_rays=181, n_rgb=n_rgb)
+    rng = np.random.default_rng(5)
+    for k in range(int(n_rgb * 1.2) + 1):
+        write_png(str(tmp_path / "dataRGBD" / "Disparity20"
+                      / f"disparity20_{k}.png"),
+                  rng.integers(400, 900, (480, 640)).astype(np.uint16))
+    for i in range(1, n_rgb + 1):
+        write_png(str(tmp_path / "dataRGBD" / "RGB20" / f"rgb20_{i}.png"),
+                  rng.integers(0, 255, (480, 640, 3)).astype(np.uint8))
+    monkeypatch.chdir(tmp_path)
+    common = ["--dataset_path", data, *SMALL_MAP]
+    assert cli_main(common + ["--mode", "odom", "--output_dir", "out",
+                              "--device", "cpu"]) == 0
+    flags = common + ["--load_poses", "out/poses_odom_20.npy",
+                      "--generate_texture_map", "--save_logodds"]
+    jax_main.main(flags + ["jax.npy"])
+    os.rename("images", "images_jax")
+    assert cli_main(flags + ["port.npy", "--device", "cpu"]) == 0
+    name = "logodds_map_odom_20.png"
+    assert ((tmp_path / "images" / name).read_bytes()
+            == (tmp_path / "images_jax" / name).read_bytes())
+
+    d = jax_main.build_parser()  # noqa: F841  (main.py's own stamps below)
+    from lidar_slam_tpu.utils import io as jio_
+
+    raw = jio_.load_data(20, jio_.DATASET_NAMES, data)
+    enc = jsens.Encoder.from_data(raw["encoder"])
+    kin = jsens.Kinect.from_data(raw["rgbd"])
+    rgb_pose = jsens.Kinect.get_closest_stamps(enc.stamps, kin.rgb_stamps)
+    disp_for = jsens.Kinect.get_closest_stamps(kin.disp_stamps,
+                                               kin.rgb_stamps)
+    grid = np.asarray(jocc.finalize_grid(jnp.asarray(np.load("jax.npy"))))
+    want = jtex.generate_texture_map(
+        np.load("out/poses_odom_20.npy"), rgb_pose, disp_for, grid,
+        jtex.disk_frame_loader(20, disp_for), jc.MapConfig.from_cli(
+            0.25, 40, 40), jc.CameraConfig(), projector="device")
+    jtex.plot_texture_map(want, str(tmp_path / "want.png"))
+    got = (tmp_path / "images" / "texture_map_odom_20.png").read_bytes()
+    assert got == (tmp_path / "want.png").read_bytes()
+    assert ((want * 255).astype(np.uint8) != grid[..., None]).any(-1).sum() > 50
