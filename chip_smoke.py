@@ -89,11 +89,24 @@ first failure and catches nothing):
  13. the texture of 2,407 RGB-D frames of 480 x 640 (bench.py's
      synthetic frames and poses) on the 1201 x 1201 map, projector
      "device": seconds a frame; the cells and colors painted by the first
-     64 frames on the card equal to the CPU's, bit for bit.
+     64 frames on the card equal to the CPU's, bit for bit;
+ 14. revisit loop closures on the card (revisit_phase): (a) the two-lap
+     revisit world (4,956 x 1,081) with the descriptor proposer and the
+     Cauchy kernel against the fixed proposer (a revisit kept, ATE below
+     the fixed run's, the map bit-exact against the plain scatter); (b)
+     the reversed-lap world (4,956 steps) with estimate-seeded proximity
+     within 2 m and TrICP 0.55 against fixed (a closure kept, ATE below
+     fixed's); (c) PLICP scan matching on [5]'s log; (d) [5]'s fixed
+     graph by the banded, direct and CG solvers, direct held to banded in
+     float64 (float32 printed); (e) a small revisit log on the card and
+     on the CPU (the same kept pairs, poses within 1e-3). Each run prints
+     its proposals, kept closures, LM iterations, ATE, stage seconds and
+     K4 and K1 launches.
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2 and K4, and
-[12]'s apart for K1 and K4; the tools' run in [10] for P1-P9), its error against its plain version, its,
+[12]'s and [14]'s revisit runs apart for K1 and K4; the tools' run in [10]
+for P1-P9), its error against its plain version, its,
 the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
@@ -696,6 +709,189 @@ def texture_phase(dev, cfg) -> None:
         fail("the texture map is malformed")
 
 
+REVISIT_STEPS, REVERSE_LAP = 4956, 2468  # [14]: dataset-20 length
+SMALL_REVISIT = dict(n_steps=360, n_rays=361, laps=2)  # [14] (e)
+DIRECT_POSE_TOL, DIRECT_COST_RTOL = 1e-5, 1e-6  # tests/test_pose_graph.py
+
+
+def revisit_phase(dev, cfg, log21, res5, pts21, masks21) -> dict:
+    """[14]: revisit loop closures on the card. (a) the two-lap revisit
+    world (4,956 x 1,081) with the descriptor proposer and the Cauchy
+    kernel (direct solver) against the fixed proposer: a revisit kept, ATE
+    below the fixed run's, poses finite, K1's map bit-exact against the
+    plain scatter; (b) the reversed-lap world (4,956 steps) with
+    estimate-seeded proximity within 2 m (tests/test_loop_detection.py's
+    setting for this world), TrICP 0.55 and the Huber kernel, against
+    fixed: a closure kept, ATE below fixed's; (c) PLICP scan matching on
+    [5]'s log, ICP iterations against [5]'s; (d) [5]'s fixed graph by the
+    banded, direct and CG solvers in float64 and float32, direct held to
+    banded in float64 (the same LM iterations, poses within 1e-5, cost
+    within rtol 1e-6); (e) a small
+    revisit log on the card and on the CPU: the same kept revisit pairs,
+    poses within 1e-3. Each run's K4 and K1 counters are reset just before
+    it. Returns K4's and K1's launches over the revisit runs of (a), (b)."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch import sensors
+    from lidar_slam_tpu_torch.kernels.nn import nn_argmin
+    from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
+    from lidar_slam_tpu_torch.models import occupancy, odometry, pose_graph
+    from lidar_slam_tpu_torch.models import slam
+    from lidar_slam_tpu_torch.ops import icp as icp_ops
+    from lidar_slam_tpu_torch.ops import scan as scan_ops
+    from lidar_slam_tpu_torch.utils import io, metrics
+
+    def with_pg(**pg):
+        return dataclasses.replace(cfg, pose_graph=dataclasses.replace(
+            cfg.pose_graph, **pg))
+
+    def run(tag, args, run_cfg, gt=None, build_map=True):
+        torch.cuda.synchronize()
+        nn_argmin.launches = 0
+        raywalk_build.launches = 0
+        t0 = time.perf_counter()
+        r = slam.run_slam(*args, mode="gtsam", cfg=run_cfg, device=dev,
+                          build_map=build_map)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"nn_argmin": nn_argmin.launches,
+                    "raywalk_build": raywalk_build.launches}
+        kept = 0 if r.revisit_pairs is None else len(r.revisit_pairs)
+        ate = (None if gt is None
+               else metrics.ate_translation(r.poses, gt)["rmse"])
+        print(f"[14] {tag}: total {wall:.3f} s; " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in r.stage_seconds.items())
+            + f"; revisit proposals {r.revisit_proposed}, kept {kept}; "
+            f"loop closures {r.n_loop_closures}; LM iterations "
+            f"{r.lm_iterations}; ICP iterations mean "
+            f"{r.scan_matching_iters.mean():.2f}; ATE "
+            + ("-" if ate is None else f"{ate:.4f} m")
+            + f"; launches {launches}", flush=True)
+        if not np.isfinite(r.poses).all():
+            fail(f"[14] {tag}: poses are not finite")
+        if launches["nn_argmin"] == 0 or (build_map
+                                           and launches["raywalk_build"] == 0):
+            fail(f"[14] {tag}: a kernel was not launched: {launches}")
+        return r, launches, kept, ate
+
+    launches_rv = {"nn_argmin": 0, "raywalk_build": 0}
+    # (a) descriptor loops on the two-lap world
+    d_a = io.synthetic_revisit_dataset(n_steps=REVISIT_STEPS, n_rays=1081,
+                                       laps=2)
+    args_a = synced(d_a, sensors)
+    gt_a = d_a["ground_truth"]
+    _, _, _, ate_fa = run("(a) two-lap revisit world, fixed", args_a,
+                          cfg, gt_a)
+    r_a, l_a, kept_a, ate_a = run(
+        "(a) two-lap revisit world, descriptor + cauchy", args_a,
+        with_pg(loop_proposer="descriptor", robust_loss="cauchy"), gt_a)
+    pts_a, masks_a = scan_ops.scans_to_points(
+        torch.as_tensor(args_a[2], dtype=torch.float32, device=dev), 0.1,
+        30.0, cfg.lidar)
+    ends_a = occupancy.ray_ends(torch.as_tensor(r_a.poses, device=dev),
+                                pts_a, cfg.map)
+    g_plain = occupancy.build_logodds_scatter(ends_a.cpu(), masks_a.cpu(),
+                                              cfg.map, r_a.ray_cells)
+    diff_a = float((torch.from_numpy(r_a.logodds) - g_plain).abs().max())
+    print(f"[14] (a) map (K={r_a.ray_cells}) vs plain (CPU scatter): max "
+          f"|diff| {diff_a}, nonzero cells {int((g_plain != 0).sum())}",
+          flush=True)
+    if kept_a < 1 or not ate_a < ate_fa:
+        fail("[14] (a) no revisit kept, or ATE not below the fixed run's")
+    if diff_a != 0.0 or int((g_plain != 0).sum()) < 1000:
+        fail("[14] (a) the revisit run's map disagrees with the scatter path")
+    # (b) estimate-seeded proximity on the reversed lap
+    d_b = io.synthetic_reverse_lap_dataset(n_lap=REVERSE_LAP, turn_steps=20,
+                                           n_rays=1081)
+    args_b = synced(d_b, sensors)
+    gt_b = d_b["ground_truth"]
+    _, _, _, ate_fb = run("(b) reversed-lap world, fixed", args_b, cfg, gt_b)
+    r_b, l_b, kept_b, ate_b = run(
+        "(b) reversed-lap world, seeded proximity (radius 2 m) + TrICP "
+        "0.55 + huber", args_b,
+        with_pg(loop_proposer="proximity", proximity_seed="estimate",
+                proximity_trim=0.55, proximity_radius=2.0,
+                robust_loss="huber"), gt_b)
+    if kept_b < 1 or not ate_b < ate_fb:
+        fail("[14] (b) no closure kept, or ATE not below the fixed run's")
+    for k in launches_rv:
+        launches_rv[k] = l_a[k] + l_b[k]
+    # (c) PLICP on [5]'s log
+    r_c, _, _, _ = run("(c) PLICP scan matching on [5]'s log", log21,
+                       dataclasses.replace(cfg, icp=dataclasses.replace(
+                           cfg.icp, metric="point_to_line")),
+                       build_map=False)
+    print(f"[14] (c) ICP iterations mean {r_c.scan_matching_iters.mean():.2f}"
+          f" (max {int(r_c.scan_matching_iters.max())}) against [5]'s "
+          f"{res5.scan_matching_iters.mean():.2f}", flush=True)
+    # (d) the three solvers on [5]'s fixed graph
+    counts21, gyro21 = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                        for a in log21[:2])
+    md, my = odometry.max_step_gates(counts21, gyro21, cfg.robot.dt)
+    cand = slam.loop_closure_candidates(pts21.shape[0], 10)
+    loop_T, accept, _, _ = slam.compute_loop_closures(
+        icp_ops.lift_to_3d(pts21), masks21, cand, 10, float(md), float(my))
+    ci = torch.as_tensor(cand, dtype=torch.int64, device=dev)
+    sol = {}
+    # the gate runs in float64, as tests/test_pose_graph.py does: a chain
+    # of 4,956 poses anchored at one end is conditioned near (4n/pi)^2, so
+    # two exact float32 solvers part along its flattest directions (the
+    # float32 pair is printed, not gated)
+    for dt in (torch.float64, torch.float32):
+        x0 = torch.as_tensor(res5.poses_scan_matching, device=dev).to(dt)
+        rel = torch.as_tensor(res5.relative_poses_scan_matching,
+                              device=dev).to(dt)
+        for solver in ("banded", "direct", "cg"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt = pose_graph.optimize_trajectory(
+                x0, rel, ci, ci + 10, loop_T.to(dt), accept,
+                dataclasses.replace(cfg.pose_graph, solver=solver,
+                                    fixed_interval=10))
+            torch.cuda.synchronize()
+            sol[dt, solver] = (opt, time.perf_counter() - t0)
+    gaps = {}
+    for dt in (torch.float64, torch.float32):
+        (ob, sb), (od, sd), (oc, sc) = (sol[dt, k]
+                                        for k in ("banded", "direct", "cg"))
+        gaps[dt] = (float((od.poses - ob.poses).abs().max()),
+                    abs(float(od.cost) - float(ob.cost)) / abs(float(ob.cost)))
+        print(f"[14] (d) [5]'s fixed graph in {str(dt)[6:]} "
+              f"({x0.shape[0]} poses, {int(accept.sum())}/{len(cand)} loops "
+              f"live, direct's panel {1 + 3 * len(cand)} columns): banded "
+              f"{ob.iterations} LM iterations, cost {float(ob.cost):.9g}, "
+              f"{sb:.3f} s; direct {od.iterations}, {float(od.cost):.9g}, "
+              f"{sd:.3f} s; cg {oc.iterations}, {float(oc.cost):.9g}, "
+              f"{sc:.3f} s; direct vs banded: max pose diff "
+              f"{gaps[dt][0]:.3e}, cost rel diff {gaps[dt][1]:.3e}",
+              flush=True)
+        if not torch.isfinite(oc.poses).all():
+            fail("[14] (d) the CG solve is not finite")
+    (ob, _), (od, _) = sol[torch.float64, "banded"], sol[torch.float64,
+                                                         "direct"]
+    if (od.iterations != ob.iterations
+            or gaps[torch.float64][0] > DIRECT_POSE_TOL
+            or gaps[torch.float64][1] > DIRECT_COST_RTOL):
+        fail("[14] (d) the direct solve disagrees with the banded solve")
+    # (e) a small revisit log on the card and on the CPU
+    small = synced(io.synthetic_revisit_dataset(**SMALL_REVISIT), sensors)
+    cfg_e = with_pg(loop_proposer="descriptor", robust_loss="cauchy")
+    r_g = slam.run_slam(*small, mode="gtsam", cfg=cfg_e, device=dev,
+                        build_map=False)
+    r_c = slam.run_slam(*small, mode="gtsam", cfg=cfg_e, device="cpu",
+                        build_map=False)
+    pairs_g, pairs_c = (sorted(map(tuple, r.revisit_pairs.tolist()))
+                        for r in (r_g, r_c))
+    pose_e = float(np.abs(r_g.poses - r_c.poses).max())
+    print(f"[14] (e) small revisit log ({SMALL_REVISIT['n_steps']} x "
+          f"{SMALL_REVISIT['n_rays']}) card vs CPU: kept revisit pairs "
+          f"{len(pairs_g)} and {len(pairs_c)}, equal {pairs_g == pairs_c}; "
+          f"max pose diff {pose_e:.3e}", flush=True)
+    if pairs_g != pairs_c or not pairs_g or pose_e > SMALL_POSE_TOL:
+        fail("[14] (e) the card's revisit run disagrees with the CPU's")
+    return launches_rv
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1236,6 +1432,8 @@ def main() -> int:
     # 12. the filtered gtsam run; 13. the texture
     launches_f = filtered_phase(dev, log21, pts21, masks21, cfg)
     texture_phase(dev, cfg)
+    # 14. revisit loop closures
+    launches_rv = revisit_phase(dev, cfg, log21, res, pts21, masks21)
 
     print(card)
     # launches: the main paths' runs, gtsam [5] plus online [8]; the
@@ -1251,7 +1449,8 @@ def main() -> int:
          "device_ms": dev_nn, "ms_b1": nn1_ms, "plain_ms_b1": nn1_plain_ms,
          "library_ms_b1": nn1_lib_ms, "bound_ms_b1": nn1_bound[0],
          "device_ms_b1": dev_nn1, "host_us_b1": split["nn_argmin_b1"],
-         "launches_filtered": launches_f["nn_argmin"]},
+         "launches_filtered": launches_f["nn_argmin"],
+         "launches_revisit": launches_rv["nn_argmin"]},
         # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
@@ -1263,7 +1462,8 @@ def main() -> int:
          "bound_by": rw_bound[1], "library_ms": None, "device_ms": dev_k1,
          "device_ms_bin": k1_ms["bin"], "device_ms_walk": k1_ms["walk"],
          "owner_side": OWNER_SIDE, "hot_crossings": hot,
-         "launches_filtered": launches_f["raywalk_build"]},
+         "launches_filtered": launches_f["raywalk_build"],
+         "launches_revisit": launches_rv["raywalk_build"]},
         {"name": "raywalk_scan", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
          "replaces": "lidar_slam_tpu/ops/raywalk.py:461",

@@ -17,12 +17,14 @@ the working directory), the texture map PNG, under main.py's image paths
 painted on --device (main.py's "auto" engine may take its native host
 projector, which the port does not have).
 
-Flags of capabilities that are not ported yet parse and then exit nonzero
-with "not yet ported": --synthetic_revisit N > 0, --loop_proposer
-proximity|descriptor, --robust_loss huber|cauchy, --proximity_seed
-estimate, --proximity_trim other than 1.0, --icp_metric point_to_line,
---export_ros_map and --export_tum. --synthetic_laps is accepted: as in
-main.py, only a refused flag reads it.
+Beyond the reference, as main.py: --loop_proposer proximity|descriptor adds
+verified revisit closures (with --proximity_seed estimate and
+--proximity_trim q for estimate-seeded trimmed verification),
+--robust_loss huber|cauchy a robust kernel on the loop factors,
+--icp_metric point_to_line PLICP scan matching, --synthetic_revisit N
+[--synthetic_laps L] the revisit scene, --export_ros_map STEM the map as a
+ROS map_server PGM + YAML and --export_tum PATH the final poses as a TUM
+trajectory.
 """
 
 from __future__ import annotations
@@ -65,8 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Run on an N-step synthetic dataset instead of "
                         "reading npz files")
     p.add_argument("--synthetic_revisit", type=int, default=0, metavar="N",
-                   help="Run on an N-step synthetic revisit scene (not yet "
-                        "ported)")
+                   help="Run on an N-step synthetic revisit scene (a "
+                        "circle driven --synthetic_laps times)")
     p.add_argument("--synthetic_laps", type=int, default=1,
                    help="Laps for --synthetic_revisit")
     p.add_argument("--output_dir", type=str, default="outputs/",
@@ -80,46 +82,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "estimation and only build the map")
     p.add_argument("--loop_proposer", type=str, default="fixed",
                    choices=["fixed", "proximity", "descriptor"],
-                   help="only 'fixed' is ported")
+                   help="loop-closure proposer: the reference's fixed "
+                        "interval, or fixed plus verified revisit pairs")
     p.add_argument("--robust_loss", type=str, default="none",
                    choices=["none", "huber", "cauchy"],
-                   help="only 'none' is ported")
+                   help="robust m-estimator on the loop factors")
     p.add_argument("--proximity_seed", type=str, default="identity",
                    choices=["identity", "estimate"],
-                   help="only 'identity' is ported")
+                   help="seed of the revisit verification ICP")
     p.add_argument("--proximity_trim", type=float, default=1.0,
-                   help="only 1.0 is ported")
+                   help="TrICP fraction of the revisit verification")
     p.add_argument("--icp_metric", type=str, default="point",
                    choices=["point", "point_to_line"],
-                   help="only 'point' is ported")
+                   help="ICP metric of scan matching")
     p.add_argument("--export_ros_map", type=str, default=None,
-                   metavar="STEM", help="(not yet ported)")
+                   metavar="STEM",
+                   help="write the map as STEM.pgm + STEM.yaml (ROS "
+                        "map_server)")
     p.add_argument("--export_tum", type=str, default=None, metavar="PATH",
-                   help="(not yet ported)")
+                   help="write the final poses as a TUM trajectory")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
     return p
-
-
-def _unported(args) -> list[str]:
-    out = []
-    if args.synthetic_revisit > 0:
-        out.append("--synthetic_revisit")
-    if args.loop_proposer != "fixed":
-        out.append(f"--loop_proposer {args.loop_proposer}")
-    if args.robust_loss != "none":
-        out.append(f"--robust_loss {args.robust_loss}")
-    if args.proximity_seed != "identity":
-        out.append(f"--proximity_seed {args.proximity_seed}")
-    if args.proximity_trim != 1.0:
-        out.append(f"--proximity_trim {args.proximity_trim}")
-    if args.icp_metric != "point":
-        out.append(f"--icp_metric {args.icp_metric}")
-    if args.export_ros_map:
-        out.append("--export_ros_map")
-    if args.export_tum:
-        out.append("--export_tum")
-    return out
 
 
 def image_paths(args) -> tuple[str, str]:
@@ -134,18 +118,25 @@ def image_paths(args) -> tuple[str, str]:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    unported = _unported(args)
-    if unported:
-        parser.error(f"not yet ported: {', '.join(unported)}")
+
+    import dataclasses
+
+    import numpy as np
 
     from . import sensors
     from .config import MapConfig, SlamConfig
     from .models import slam
-    from .utils import io
+    from .utils import export, io
 
     device = slam.resolve_device(args.device)
     d = args.dataset
-    if args.synthetic:
+    if args.synthetic_revisit:
+        data = io.synthetic_revisit_dataset(n_steps=args.synthetic_revisit,
+                                            laps=args.synthetic_laps)
+        print(f"synthetic revisit scene, {args.synthetic_revisit} steps, "
+              f"{args.synthetic_laps} lap(s)")
+        args.synthetic = args.synthetic_revisit  # no RGB-D frames either
+    elif args.synthetic:
         # --dataset routes the synthetic generator too, like main.py
         gen = io.synthetic_dataset_21 if d == 21 else io.synthetic_dataset
         data = gen(n_steps=args.synthetic)
@@ -159,6 +150,12 @@ def main(argv=None) -> int:
 
     cfg = SlamConfig(map=MapConfig.from_cli(args.res, args.width,
                                             args.height))
+    cfg = dataclasses.replace(
+        cfg, pose_graph=dataclasses.replace(
+            cfg.pose_graph, loop_proposer=args.loop_proposer,
+            robust_loss=args.robust_loss, proximity_seed=args.proximity_seed,
+            proximity_trim=args.proximity_trim),
+        icp=dataclasses.replace(cfg.icp, metric=args.icp_metric))
     # main.py:224-226: the map is built only for an output that reads it
     build_map = (args.generate_texture_map or bool(args.save_logodds)
                  or bool(args.export_ros_map))
@@ -180,6 +177,19 @@ def main(argv=None) -> int:
     if args.save_logodds:
         io.save_numpy(result.logodds, args.save_logodds)
         print(f"log-odds grid saved at {args.save_logodds}")
+    if args.export_ros_map:
+        pgm, yml = export.save_map_ros(result.logodds, cfg.map,
+                                       args.export_ros_map)
+        print(f"ROS map_server map saved at {pgm} + {yml}")
+    if args.export_tum:
+        # main.py's pose choice: optimized, else scan-matched, else odometry
+        final = next(p for p in (result.poses_optimized,
+                                 result.poses_scan_matching,
+                                 result.poses_odom) if p is not None)
+        stamps = (np.asarray(encoder.stamps)[:final.shape[0]]
+                  if len(encoder.stamps) >= final.shape[0] else None)
+        export.save_trajectory_tum(args.export_tum, final, stamps)
+        print(f"TUM trajectory saved at {args.export_tum}")
     print("stage seconds: " + ", ".join(
         f"{k} {v:.3f}" for k, v in result.stage_seconds.items()))
     if args.generate_texture_map:

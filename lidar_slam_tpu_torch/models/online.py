@@ -16,13 +16,15 @@ allocates nor copies the 5.8 MB grid. Keep a copy (or a checkpoint) of a
 state that must survive the next step.
 
 refine() smooths the retained window with the pose-graph solve of the gtsam
-stage (banded LM), optionally with gated fixed-interval loop closures from
-the window's scans; the causal map is untouched. save_state/load_state use
+stage, optionally with gated fixed-interval loop closures from the window's
+scans and, under the proximity or descriptor proposer, verified in-window
+revisit closures; the causal map is untouched. save_state/load_state use
 the JAX package's .npz layout, so a checkpoint resumes in either package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -33,7 +35,8 @@ from ..config import SlamConfig
 from ..ops import icp as icp_ops
 from ..utils import interop, se2
 from . import occupancy, odometry, pose_graph
-from .slam import compute_loop_closures, loop_closure_candidates, resolve_device
+from .slam import (compute_loop_closures, loop_closure_candidates,
+                   resolve_device, revisit_closures)
 
 
 class OnlineState(NamedTuple):
@@ -103,10 +106,8 @@ def online_step(state: OnlineState, counts, gyro, points, mask,
     encoder ticks, gyro (3,), points (P, 2) or (P, 3) robot-frame scan,
     mask (P,). Consumes `state` (module docstring): its logodds, poses_hist
     and rel_hist are updated in place and returned in the new state. Pass
-    the K used at init_state when overriding it."""
-    if cfg.icp.metric != "point":
-        raise NotImplementedError(f"icp metric {cfg.icp.metric!r} is not "
-                                  "yet ported (only 'point')")
+    the K used at init_state when overriding it. The scan match uses
+    cfg.icp.metric."""
     if K is None:
         K = default_ray_cells(cfg)
     dev = state.pose.device
@@ -126,7 +127,7 @@ def online_step(state: OnlineState, counts, gyro, points, mask,
         state.prev_mask[None], se2.TSE3_from_TSE2(seed2)[None],
         epsilon=cfg.icp.epsilon, max_iters=cfg.icp.max_iters,
         stopping_thresh=cfg.icp.stopping_thresh,
-        normalize_error=cfg.icp.normalize_error)
+        normalize_error=cfg.icp.normalize_error, metric=cfg.icp.metric)
     rel2 = se2.TSE2_from_TSE3(res.T[0])
 
     # tracking-health signal in metres under the final transform
@@ -178,7 +179,8 @@ def window_start(state: OnlineState) -> int:
 
 def refine(state: OnlineState, cfg: SlamConfig = SlamConfig(),
            scans=None, scan_masks=None, max_distance: float = np.inf,
-           max_yaw_deg: float = np.inf) -> np.ndarray:
+           max_yaw_deg: float = np.inf,
+           descriptor_range: tuple[float, float] = (0.1, 30.0)) -> np.ndarray:
     """Smooth the retained trajectory window with the pose-graph solve of
     the gtsam stage (reference main.py:148-192); returns (n, 3) poses of
     global steps [window_start(state), state.step].
@@ -188,15 +190,15 @@ def refine(state: OnlineState, cfg: SlamConfig = SlamConfig(),
     it the marginalized summary of the evicted chain. With `scans`
     (>= n, P, 2 or 3) and `scan_masks`, the window's scans in chronological
     order (the last n are used), gated fixed-interval loop closures are
-    added as in the offline stage; without them, between factors only.
-    Only the fixed loop proposer and the banded solver without a robust
-    loss are ported.
+    added as in the offline stage; under cfg.pose_graph.loop_proposer
+    "proximity" (nearness on the window's poses) or "descriptor" (range
+    histograms of the window's points, ||p|| binned over
+    `descriptor_range`), in-window revisit closures are also proposed,
+    verified and suppressed as offline (slam.revisit_closures), and the
+    solve switches to the direct solver once one is kept. Without scans,
+    between factors only.
     """
     pg_cfg = cfg.pose_graph
-    if pg_cfg.loop_proposer != "fixed":
-        raise NotImplementedError(
-            f"loop_proposer {pg_cfg.loop_proposer!r} is not yet ported "
-            "(only 'fixed')")
     n_max = state.poses_hist.shape[0]
     step = int(state.step)
     n = min(step + 1, n_max)
@@ -224,7 +226,16 @@ def refine(state: OnlineState, cfg: SlamConfig = SlamConfig(),
             pts3, masks, cand, interval, float(max_distance),
             float(max_yaw_deg))
         li = torch.as_tensor(cand, device=dev)
-        loops = dict(loop_i=li, loop_j=li + interval, loop_meas=loop_T,
+        lj = li + interval
+        if pg_cfg.loop_proposer != "fixed":
+            ranges = torch.sqrt(torch.sum(pts3[..., :2] * pts3[..., :2],
+                                          dim=-1))
+            rv = revisit_closures(pts3, masks, poses, pg_cfg, ranges,
+                                  descriptor_range[0], descriptor_range[1])
+            if rv.loop_i.numel():
+                li, lj, loop_T, accept = rv.append_to(li, lj, loop_T, accept)
+                pg_cfg = dataclasses.replace(pg_cfg, solver="direct")
+        loops = dict(loop_i=li, loop_j=lj, loop_meas=loop_T,
                      loop_mask=accept)
     graph = pose_graph.make_graph(rel, pg_cfg, prior_pose=poses[0], **loops)
     res = pose_graph.optimize_with_config(poses, graph, pg_cfg)

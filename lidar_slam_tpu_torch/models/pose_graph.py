@@ -5,17 +5,20 @@ prior on pose 0, a between factor per consecutive scan-matched pair, and
 gated fixed-interval loop closures, minimized by LM with the full SE(2) log
 map as the error (the gtsam.BetweenFactorPose2 model).
 
-The normal equations are solved exactly by the banded solver: every loop
-factor couples pose i to pose i + interval, so grouping `band` consecutive
-poses into one (3 band, 3 band) super-block makes J^T J + lam I block
-tridiagonal, and a SPIKE block-tridiagonal solve (block Thomas within
-segments plus a reduced interface system) applies directly. The factor
-Jacobian blocks come from torch.func (jacfwd under vmap), one batched pass
-per LM step. The LM loop is a Python loop that reads its done flag once per
-iteration.
-
-Only the banded solver, without robust kernels, is ported; a graph whose
-live loop factors span more than `band` poses (or run backwards) raises.
+The three linear solvers of the JAX package are ported. "banded": every
+fixed-interval loop couples pose i to pose i + interval, so grouping `band`
+consecutive poses into one (3 band, 3 band) super-block makes
+J^T J + lam I block tridiagonal, and a SPIKE block-tridiagonal solve (block
+Thomas within segments plus a reduced interface system) applies directly; a
+graph whose live loops span more than `band` poses (or run backwards)
+falls back to "direct", as the JAX package's optimize does. "direct": the
+same SPIKE solve over the chain alone with a Woodbury correction for the
+loop factors, exact for any loop topology (the revisit closures). "cg":
+block-Jacobi preconditioned conjugate gradients. The Huber and Cauchy
+robust kernels reweight the loop factors (IRLS). The factor Jacobian blocks
+come from torch.func (jacfwd under vmap), one batched pass per LM step. The
+LM loop is a Python loop that reads its done flag once per iteration; CG
+reads its residual norm once per CG iteration.
 """
 
 from __future__ import annotations
@@ -292,17 +295,67 @@ def _banded_rhs(g, n: int, band: int):
     return R
 
 
-def check_banded(graph: PoseGraph, band: int) -> None:
-    """The banded solve is exact only when every live loop factor spans
-    0 <= loop_j - loop_i <= band; raise otherwise."""
+def banded_exact(graph: PoseGraph, band: int) -> bool:
+    """Whether the banded solve is exact for this graph: every live loop
+    factor spans 0 <= loop_j - loop_i <= band (a reversed arc counts as
+    outside, since the banded assembly keeps off-diagonal blocks in the
+    lower triangle). Reads the loop arrays on the host."""
     if graph.loop_i.shape[0] == 0:
-        return
+        return True
     span = (graph.loop_j - graph.loop_i)[graph.loop_mask]
-    if span.numel() and (int(span.max()) > band or int(span.min()) < 0):
-        raise ValueError(
-            f"loop factors span [{int(span.min())}, {int(span.max())}] "
-            f"poses, outside the banded solver's [0, {band}]; the direct "
-            "solver for arbitrary loop topology is not yet ported")
+    return not (span.numel() and (int(span.max()) > band
+                                  or int(span.min()) < 0))
+
+
+def _robust_w_rho(e2: torch.Tensor, kind: str, delta: float):
+    """Per-factor IRLS weight w = rho'(e)/e and robust cost rho(e) from the
+    squared whitened residual norm e2 (L,): the Huber and Cauchy
+    m-estimators of gtsam.noiseModel.mEstimator. Scaling the whitened loop
+    residual and Jacobian blocks by sqrt(w) at each linearization is how
+    GTSAM applies a robust noise model inside LM (the rho'' term omitted).
+    Both kernels are the identity as e -> 0; masked factors have e2 = 0."""
+    if kind == "huber":
+        e = torch.sqrt(e2)
+        out = e > delta
+        w = torch.where(out, delta / torch.clamp(e, min=1e-30),
+                        torch.ones_like(e))
+        rho = torch.where(out, delta * e - 0.5 * delta * delta, 0.5 * e2)
+    elif kind == "cauchy":
+        t = e2 / (delta * delta)
+        w = 1.0 / (1.0 + t)
+        rho = 0.5 * delta * delta * torch.log1p(t)
+    else:
+        raise ValueError(f"unknown robust kernel {kind!r}")
+    return w, rho
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def cg_solve(matvec, b: torch.Tensor, x0: torch.Tensor, precond,
+             tol: float, maxiter: int) -> torch.Tensor:
+    """Preconditioned conjugate gradients for A x = b, step for step as
+    jax.scipy.sparse.linalg.cg (jax 0.9.0 _cg_solve): stop once
+    r.r <= max(tol^2 (b.b), 0) or after maxiter iterations, starting from
+    r0 = b - A x0 and p0 = z0 = M r0. The loop reads r.r on the host once
+    an iteration."""
+    atol2 = torch.clamp(tol * tol * _vdot(b, b), min=0.0)
+    r = b - matvec(x0)
+    p = z = precond(r)
+    gamma = _vdot(r, z)
+    x, k = x0, 0
+    while k < maxiter and bool(_vdot(r, r) > atol2):
+        Ap = matvec(p)
+        alpha = gamma / _vdot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        gamma_new = _vdot(r, z)
+        p = z + (gamma_new / gamma) * p
+        gamma = gamma_new
+        k += 1
+    return x
 
 
 def optimize(
@@ -312,26 +365,48 @@ def optimize(
     lambda_init: float = 1e-4,
     lambda_up: float = 10.0,
     lambda_down: float = 0.1,
+    cg_iters: int = 250,
+    cg_tol: float = 1e-8,
     cost_rtol: float = 1e-9,
+    solver: str = "direct",
     band: int = 10,
+    robust: str = "none",
+    robust_delta: float = 1.0,
 ) -> LMResult:
-    """Levenberg-Marquardt with the exact banded solve.
+    """Levenberg-Marquardt over the graph with the chosen linear solver.
+
+    solver "banded": the exact super-block tridiagonal solve, exact only
+    when every live loop spans at most `band` poses forward; a graph that
+    breaks that falls back to "direct" (banded_exact). "direct": the exact
+    Newton step, SPIKE over the chain's block-tridiagonal Hessian plus a
+    Woodbury correction for the loop factors, any topology. "cg":
+    block-Jacobi preconditioned CG, warm-started from the last rejected
+    step. robust in {"none", "huber", "cauchy"} applies that m-estimator
+    (width robust_delta, whitened units) to the LOOP factors by IRLS.
 
     Stopping rule (gtsam checkConvergence analog): an ACCEPTED step whose
     cost decrease is at most cost_rtol * max(cost, 1) ends the optimization
     at once; rejected steps retry with lambda * lambda_up, and three
     non-improving steps in a row or lambda > 1e10 also stop it.
     """
-    check_banded(graph, band)
+    if solver not in ("banded", "direct", "cg"):
+        raise ValueError(f"unknown pose-graph solver {solver!r}")
+    if solver == "banded" and not banded_exact(graph, band):
+        solver = "direct"
     n = poses0.shape[0]
     dtype, dev = poses0.dtype, poses0.device
     idx_i = torch.arange(n - 1, device=dev)
     idx_j = idx_i + 1
+    n_loops = int(graph.loop_i.shape[0])
     inv_btw = 1.0 / graph.between_sigmas
     inv_loop = 1.0 / graph.loop_sigmas
     inv_prior = 1.0 / graph.prior_sigmas
     T_prior_inv = se2.inverse_T(se2.T_from_pose(graph.prior_pose))
     lw = graph.loop_mask.to(dtype)[:, None]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    jtj = lambda Ja, Jb: torch.einsum("bij,bik->bjk", Ja, Jb)  # noqa: E731
+    jtr = lambda J, r: torch.einsum("bij,bi->bj", J, r)  # noqa: E731
+    jv = lambda J, v: torch.einsum("bij,bj->bi", J, v)  # noqa: E731
 
     def prior_residual(p):
         return se2.log_se2(T_prior_inv @ se2.T_from_pose(p)) * inv_prior
@@ -346,7 +421,15 @@ def optimize(
         rl = rl * lw
         Jli = Jli * lw[..., None]
         Jlj = Jlj * lw[..., None]
-        jtr = lambda J, r: torch.einsum("bij,bi->bj", J, r)  # noqa: E731
+        if robust != "none":
+            # IRLS: sqrt(w)-scaled loop blocks, so every solver sees the
+            # reweighted normal equations
+            w, _ = _robust_w_rho(torch.sum(rl * rl, dim=1), robust,
+                                 robust_delta)
+            sw = torch.sqrt(w)[:, None]
+            rl = rl * sw
+            Jli = Jli * sw[..., None]
+            Jlj = Jlj * sw[..., None]
         g = x.new_zeros((n, 3))
         g[0] += Jp.T @ rp
         g.index_add_(0, idx_i, jtr(Jbi, rb))
@@ -360,21 +443,32 @@ def optimize(
         rb = _factor_residual(x[idx_i], x[idx_j], graph.between_meas, inv_btw)
         rl = _factor_residual(x[graph.loop_i], x[graph.loop_j],
                               graph.loop_meas, inv_loop) * lw
-        return 0.5 * (torch.dot(rp, rp) + torch.sum(rb * rb)
-                      + torch.sum(rl * rl))
+        if robust == "none":
+            loop_cost = 0.5 * torch.sum(rl * rl)
+        else:
+            _, rho = _robust_w_rho(torch.sum(rl * rl, dim=1), robust,
+                                   robust_delta)
+            loop_cost = torch.sum(rho)
+        return 0.5 * (torch.dot(rp, rp) + torch.sum(rb * rb)) + loop_cost
+
+    def diagonal_blocks(J, lam, with_loops: bool):
+        """lam I plus the (3, 3) diagonal blocks of J^T J, per pose."""
+        Jp, Jbi, Jbj, Jli, Jlj = J
+        D = lam * eye3.expand(n, 3, 3).clone()
+        D[0] += Jp.T @ Jp
+        D.index_add_(0, idx_i, jtj(Jbi, Jbi))
+        D.index_add_(0, idx_j, jtj(Jbj, Jbj))
+        if with_loops:
+            D.index_add_(0, graph.loop_i, jtj(Jli, Jli))
+            D.index_add_(0, graph.loop_j, jtj(Jlj, Jlj))
+        return D
 
     def banded_solve(J, lam, g):
         Jp, Jbi, Jbj, Jli, Jlj = J
         G = band
         n_sup = -(-n // G)
         n_padded = n_sup * G
-        jtj = lambda Ja, Jb: torch.einsum("bij,bik->bjk", Ja, Jb)  # noqa: E731
-        D = lam * torch.eye(3, dtype=dtype, device=dev).expand(n, 3, 3).clone()
-        D[0] += Jp.T @ Jp
-        D.index_add_(0, idx_i, jtj(Jbi, Jbi))
-        D.index_add_(0, idx_j, jtj(Jbj, Jbj))
-        D.index_add_(0, graph.loop_i, jtj(Jli, Jli))
-        D.index_add_(0, graph.loop_j, jtj(Jlj, Jlj))
+        D = diagonal_blocks(J, lam, True)
         off_r = torch.cat([idx_j, graph.loop_j])
         off_c = torch.cat([idx_i, graph.loop_i])
         off_M = torch.cat([jtj(Jbj, Jbi), jtj(Jlj, Jli)])
@@ -388,21 +482,78 @@ def optimize(
                  + torch.arange(3, device=dev)[:, None],
                  (3 * (pad % G))[:, None, None]
                  + torch.arange(3, device=dev)[None, :]),
-                torch.eye(3, dtype=dtype, device=dev).expand(
-                    n_padded - n, 3, 3),
-                accumulate=True)
+                eye3.expand(n_padded - n, 3, 3), accumulate=True)
         X = block_tridiag_solve(A_sup, O_sup[:n_sup - 1],
                                 _banded_rhs(g, n, G), q=32)
         return X.reshape(n_padded, 3)[:n]
+
+    def direct_solve(J, lam, g):
+        """Exact Newton step: SPIKE over the chain's block-tridiagonal
+        part of J^T J + lam I with the right-hand sides [-g | U], U's
+        columns the loop Jacobians transposed (1 + 3L columns, every loop
+        candidate, live or not), then the Woodbury correction
+        x = y_b - Y_u (I + U^T Y_u)^-1 U^T y_b."""
+        Jp, Jbi, Jbj, Jli, Jlj = J
+        A = diagonal_blocks(J, lam, False)
+        O = jtj(Jbj, Jbi)  # O_i = H[i+1, i]
+        if n_loops:
+            R = g.new_zeros((n, 3, 1 + 3 * n_loops))
+            R[:, :, 0] = -g
+            rows = torch.arange(3, device=dev)[None, :, None]
+            cols = (1 + 3 * torch.arange(n_loops, device=dev)[:, None]
+                    + torch.arange(3, device=dev)[None, :])[:, None, :]
+            R.index_put_((graph.loop_i[:, None, None], rows, cols),
+                         Jli.transpose(1, 2), accumulate=True)
+            R.index_put_((graph.loop_j[:, None, None], rows, cols),
+                         Jlj.transpose(1, 2), accumulate=True)
+        else:
+            R = (-g)[:, :, None]
+        Y = block_tridiag_solve(A, O, R)
+        yb = Y[:, :, 0]
+        if not n_loops:
+            return yb
+        UtY = (torch.einsum("lab,lbm->lam", Jli, Y[graph.loop_i])
+               + torch.einsum("lab,lbm->lam", Jlj, Y[graph.loop_j]))
+        UtY = UtY.reshape(3 * n_loops, -1)
+        S = torch.eye(3 * n_loops, dtype=dtype, device=dev) + UtY[:, 1:]
+        zc = torch.linalg.solve(S, UtY[:, 0])
+        return yb - torch.einsum("nim,m->ni", Y[:, :, 1:], zc)
+
+    def cg_step(J, lam, g, x0):
+        Jp, Jbi, Jbj, Jli, Jlj = J
+        Dinv = _inv3x3b(diagonal_blocks(J, lam, True))
+
+        def matvec(v):
+            # u_f = J_i v_i + J_j v_j per factor; y_i += J_i^T u_f etc.
+            y = lam * v
+            y[0] += Jp.T @ (Jp @ v[0])
+            ub = jv(Jbi, v[idx_i]) + jv(Jbj, v[idx_j])
+            y.index_add_(0, idx_i, jtr(Jbi, ub))
+            y.index_add_(0, idx_j, jtr(Jbj, ub))
+            ul = jv(Jli, v[graph.loop_i]) + jv(Jlj, v[graph.loop_j])
+            y.index_add_(0, graph.loop_i, jtr(Jli, ul))
+            y.index_add_(0, graph.loop_j, jtr(Jlj, ul))
+            return y
+
+        return cg_solve(matvec, -g, x0,
+                        lambda v: torch.einsum("nij,nj->ni", Dinv, v),
+                        cg_tol, cg_iters)
 
     x = poses0
     lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
     cost = cost_at(x)
     stalls = torch.zeros((), dtype=torch.int64, device=dev)
+    dx_prev = torch.zeros_like(poses0)
     it = 0
     while it < max_iters:
         J, g = linearize(x)
-        x_new = x + banded_solve(J, lam, g)
+        if solver == "banded":
+            dx = banded_solve(J, lam, g)
+        elif solver == "direct":
+            dx = direct_solve(J, lam, g)
+        else:
+            dx = cg_step(J, lam, g, dx_prev)
+        x_new = x + dx
         cost_new = cost_at(x_new)
         accept = cost_new < cost
         x = torch.where(accept, x_new, x)
@@ -412,6 +563,8 @@ def optimize(
                              stalls + 1)
         done = (accept & ~improved) | (stalls >= 3) | (lam > 1e10)
         cost = torch.where(accept, cost_new, cost)
+        # the CG warm start resets on an accepted step
+        dx_prev = torch.where(accept, torch.zeros_like(dx), dx)
         it += 1
         if bool(done):
             break
@@ -419,20 +572,16 @@ def optimize(
 
 
 def optimize_with_config(poses0: torch.Tensor, graph: PoseGraph,
-                         cfg: PoseGraphConfig) -> LMResult:
-    """LM solve with the config's schedule; band = cfg.fixed_interval.
-    Requires cfg.solver == "banded" and cfg.robust_loss == "none" (the
-    other solvers and robust kernels are not yet ported)."""
-    if cfg.solver != "banded":
-        raise NotImplementedError(f"pose-graph solver {cfg.solver!r} is not "
-                                  "yet ported (only 'banded')")
-    if cfg.robust_loss != "none":
-        raise NotImplementedError(f"robust loss {cfg.robust_loss!r} is not "
-                                  "yet ported (only 'none')")
+                         cfg: PoseGraphConfig = PoseGraphConfig()
+                         ) -> LMResult:
+    """LM solve with the config's schedule, solver and robust kernel;
+    band = cfg.fixed_interval."""
     return optimize(poses0, graph, max_iters=cfg.max_lm_iters,
                     lambda_init=cfg.lambda_init, lambda_up=cfg.lambda_up,
-                    lambda_down=cfg.lambda_down, cost_rtol=cfg.cost_rtol,
-                    band=cfg.fixed_interval)
+                    lambda_down=cfg.lambda_down, cg_iters=cfg.cg_iters,
+                    cg_tol=cfg.cg_tol, cost_rtol=cfg.cost_rtol,
+                    solver=cfg.solver, band=cfg.fixed_interval,
+                    robust=cfg.robust_loss, robust_delta=cfg.robust_delta)
 
 
 def optimize_trajectory(
@@ -442,7 +591,7 @@ def optimize_trajectory(
     loop_j: torch.Tensor,
     loop_meas: torch.Tensor,
     loop_mask: torch.Tensor,
-    cfg: PoseGraphConfig = PoseGraphConfig(solver="banded"),
+    cfg: PoseGraphConfig = PoseGraphConfig(),
 ) -> LMResult:
     """Graph assembly (prior at the origin) + optimize_with_config."""
     graph = make_graph(relative_poses, cfg, loop_i=loop_i, loop_j=loop_j,

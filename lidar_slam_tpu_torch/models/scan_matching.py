@@ -42,13 +42,16 @@ def icp_all_pairs(
     stopping_thresh: float = 1e-4,
     normalize_error: bool = False,
     chunk_size: int = 64,
+    trim_fraction: float = 1.0,
+    metric: str = "point",
 ):
     """Batched planar ICP over B pairs in chunks of chunk_size.
 
     Inputs are padded to whole chunks; padding pairs get one valid target
     point and no valid source point, so their error is 0 < epsilon and they
-    stop after one iteration. Returns (T (B, 4, 4), errors (B,),
-    iters (B,)).
+    stop after one iteration. trim_fraction and metric pass through to
+    ops/icp.run_icp_batch; a pair's result does not depend on the chunk it
+    shares. Returns (T (B, 4, 4), errors (B,), iters (B,)).
     """
     B = src.shape[0]
     C = min(chunk_size, B)
@@ -67,7 +70,8 @@ def icp_all_pairs(
         res = icp_ops.run_icp_batch(
             src[c0:c1], tgt[c0:c1], src_mask[c0:c1], tgt_mask[c0:c1],
             init_T[c0:c1], epsilon=epsilon, max_iters=max_iters,
-            stopping_thresh=stopping_thresh, normalize_error=normalize_error)
+            stopping_thresh=stopping_thresh, normalize_error=normalize_error,
+            trim_fraction=trim_fraction, metric=metric)
         Ts.append(res.T)
         errs.append(res.error)
         its.append(res.iters)
@@ -85,19 +89,18 @@ def poses_from_scan_matching(
 
     x_ts (N, 3) odometry poses; points (N, P, 2) robot-frame scan points;
     masks (N, P). Pair i aligns scan i+1 onto scan i, seeded with the
-    odometry relative pose lifted to SE(3); the refined global poses are the
-    prefix composition of the per-pair results, starting at the origin.
+    odometry relative pose lifted to SE(3), under cfg.metric; the refined
+    global poses are the prefix composition of the per-pair results,
+    starting at the origin.
     """
-    if cfg.metric != "point":
-        raise NotImplementedError(f"icp metric {cfg.metric!r} is not yet "
-                                  "ported (only 'point')")
     pts3 = icp_ops.lift_to_3d(points)
     seeds3 = se2.TSE3_from_TSE2(se2.get_relative_pose(x_ts[:-1], x_ts[1:]))
     T_icp, errors, iters = icp_all_pairs(
         pts3[1:], pts3[:-1], masks[1:], masks[:-1], seeds3,
         epsilon=cfg.epsilon, max_iters=cfg.max_iters,
         stopping_thresh=cfg.stopping_thresh,
-        normalize_error=cfg.normalize_error, chunk_size=chunk_size)
+        normalize_error=cfg.normalize_error, chunk_size=chunk_size,
+        metric=cfg.metric)
     rel2 = se2.TSE2_from_TSE3(T_icp)
     poses = se2.pose_from_T(se2.compose_chain(rel2))
     return ScanMatchResult(poses=poses, relative_poses=rel2, errors=errors,

@@ -9,12 +9,15 @@ Counterpart of online_slam.py: it feeds one synchronized (encoder, gyro,
 scan) tuple at a time through models/online.online_step, with optional
 periodic sliding-window refinement and checkpoint/resume. It takes the same
 flags with the same defaults and validation messages, plus --device, and
-writes the same outputs: the causal map as a PNG (--map_path), the pose
-track including step 0 (--poses_path, .npy) and the checkpoint. The flags
-of capabilities that are not ported yet (--localize, --global_init,
---relocalize_on_loss, --export_ros_map, --refine_loops
-proximity|descriptor, --robust_loss huber|cauchy, --icp_metric
-point_to_line) are refused with "not yet ported".
+writes the same outputs: the causal map as a PNG (--map_path) and, with
+--export_ros_map STEM, as a ROS map_server PGM + YAML, the pose track
+including step 0 (--poses_path, .npy) and the checkpoint.
+--refine_loops proximity|descriptor adds verified in-window revisit
+closures to the refinement, --robust_loss huber|cauchy a robust kernel on
+its loop factors, --icp_metric point_to_line PLICP scan matching. The
+flags of relocalization and particle-filter localization, which are not
+ported yet (--localize, --global_init, --relocalize_on_loss), are refused
+with "not yet ported".
 """
 
 from __future__ import annotations
@@ -47,15 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "fixed", "proximity", "descriptor"],
                    help="loop closures inside the periodic refinement: "
                         "'none' = between factors only; 'fixed' = gated "
-                        "fixed-interval closures over the window's scans "
-                        "(proximity and descriptor: not yet ported)")
+                        "fixed-interval closures over the window's scans; "
+                        "'proximity' and 'descriptor' add verified "
+                        "in-window revisit closures")
     p.add_argument("--robust_loss", type=str, default="none",
                    choices=["none", "huber", "cauchy"],
-                   help="robust m-estimator on loop factors in refine "
-                        "(only 'none' is ported)")
+                   help="robust m-estimator on loop factors in refine")
     p.add_argument("--icp_metric", type=str, default="point",
                    choices=["point", "point_to_line"],
-                   help="ICP correspondence metric (only 'point' is ported)")
+                   help="ICP correspondence metric")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="write the full online state here at the end "
                         "(and every --refine_every steps)")
@@ -68,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "RMS point-to-correspondence distance in meters")
     p.add_argument("--map_path", type=str, default="online_map.png")
     p.add_argument("--export_ros_map", type=str, default=None, metavar="STEM",
-                   help="(not yet ported)")
+                   help="also write the causal map as STEM.pgm + "
+                        "STEM.yaml (ROS map_server)")
     p.add_argument("--poses_path", type=str, default=None,
                    help="save the streamed pose track (.npy)")
     p.add_argument("--localize", type=str, default=None, metavar="MAP.npy",
@@ -85,18 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> list[str]:
-    out = [flag for flag, on in (
+    return [flag for flag, on in (
         ("--localize", args.localize is not None),
         ("--global_init", args.global_init),
-        ("--relocalize_on_loss", args.relocalize_on_loss),
-        ("--export_ros_map", args.export_ros_map is not None)) if on]
-    if args.refine_loops in ("proximity", "descriptor"):
-        out.append(f"--refine_loops {args.refine_loops}")
-    if args.robust_loss != "none":
-        out.append(f"--robust_loss {args.robust_loss}")
-    if args.icp_metric != "point":
-        out.append(f"--icp_metric {args.icp_metric}")
-    return out
+        ("--relocalize_on_loss", args.relocalize_on_loss)) if on]
 
 
 def main(argv=None) -> int:
@@ -118,6 +114,8 @@ def main(argv=None) -> int:
                 "(refusing to start fresh and overwrite it; drop --resume "
                 "for a new run)")
 
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -131,6 +129,14 @@ def main(argv=None) -> int:
     dev = slam.resolve_device(args.device)
     cfg = SlamConfig(map=MapConfig.from_cli(args.res, args.width,
                                             args.height))
+    proposer = (args.refine_loops if args.refine_loops in ("proximity",
+                                                           "descriptor")
+                else cfg.pose_graph.loop_proposer)
+    cfg = dataclasses.replace(
+        cfg, pose_graph=dataclasses.replace(
+            cfg.pose_graph, loop_proposer=proposer,
+            robust_loss=args.robust_loss),
+        icp=dataclasses.replace(cfg.icp, metric=args.icp_metric))
     if args.synthetic:
         data = io.synthetic_dataset(n_steps=args.synthetic, seed=0)
     else:
@@ -205,7 +211,8 @@ def main(argv=None) -> int:
                 refined = online.refine(
                     st, cfg, scans=points[lo:t + 1],
                     scan_masks=masks[lo:t + 1],
-                    max_distance=float(max_d), max_yaw_deg=float(max_y))
+                    max_distance=float(max_d), max_yaw_deg=float(max_y),
+                    descriptor_range=(rmin, rmax))
             print(f"step {t}: refined window of {refined.shape[0]} poses "
                   f"(start step {online.window_start(st)})",
                   file=sys.stderr)
@@ -228,6 +235,12 @@ def main(argv=None) -> int:
         print(f"pose track -> {args.poses_path}", file=sys.stderr)
     write_png(args.map_path, occupancy.render_logodds(st.logodds))
     print(f"causal map -> {args.map_path}", file=sys.stderr)
+    if args.export_ros_map:
+        from .utils import export
+
+        pgm, yml = export.save_map_ros(st.logodds.cpu().numpy(), cfg.map,
+                                       args.export_ros_map)
+        print(f"ROS map_server map -> {pgm} + {yml}", file=sys.stderr)
     return 0
 
 

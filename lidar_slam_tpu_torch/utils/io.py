@@ -189,6 +189,207 @@ def synthetic_dataset_21(
         speed=0.85, speed_amp=0.25, yaw_amp=0.12)
 
 
+def synthetic_revisit_dataset(
+    n_steps: int = 360,
+    n_rays: int = 541,
+    gyro_scale: float = 0.97,
+    radius: float = 3.0,
+    seed: int = 7,
+    range_min: float = 0.1,
+    range_max: float = 30.0,
+    laps: int = 1,
+) -> Dict:
+    """A revisit scene for loop-closure work: a circle of `radius` driven
+    `laps` times around the raycast room, so the trajectory revisits its
+    own earlier poses — while `gyro_scale` biases the measured yaw rate so
+    every pose estimate DRIFTS (~2.8 m by loop end at the defaults).
+    laps=1 revisits only the start; laps>=2 makes EVERY pose of lap k a
+    revisit of lap k-1 (pairs (i, i + n_steps/laps)) — the multi-site case.
+
+    Same schema as synthetic_dataset. This is the calibration scene for
+    the revisit proposers and the ICP-error verification gate
+    (models/slam.py); the plain synthetic_dataset trajectory wanders
+    without ever revisiting, so it cannot exercise loop closure beyond
+    fixed-interval pairs.
+    """
+    rng = np.random.default_rng(seed)
+    freq = 40.0
+    dt = 1.0 / freq
+    t0 = 1e9
+    stamps = t0 + np.arange(n_steps) * dt
+    w_true = 2 * np.pi * laps / (n_steps * dt)    # `laps` full turns
+    v_true = w_true * radius
+    t = np.arange(n_steps) * dt
+    theta = w_true * t
+    gt_poses = np.stack([radius * np.sin(theta),
+                         radius * (1 - np.cos(theta)), theta], axis=1)
+
+    ticks = np.full(n_steps, v_true / (0.0022 * freq))
+    counts = np.stack([ticks] * 4, axis=1) + rng.normal(0, 0.05, (n_steps, 4))
+    gyro = np.zeros((n_steps, 3))
+    gyro[:, 2] = w_true * gyro_scale + rng.normal(0, 2e-3, n_steps)
+    acc = np.zeros((n_steps, 3))
+    acc[:, 2] = 9.81
+
+    angles = np.linspace(np.radians(-135.0), np.radians(135.0), n_rays)
+    ranges = _raycast_room(gt_poses, angles, range_max, rng)
+    ranges = np.clip(ranges + rng.normal(0, 0.003, ranges.shape), 0.0,
+                     range_max + 5.0)
+    return {
+        "encoder": {"counts": counts, "stamps": stamps},
+        "lidar": {
+            "angle_min": np.radians(-135.0),
+            "angle_max": np.radians(135.0),
+            "angle_increment": np.radians(270.0) / (n_rays - 1),
+            "range_min": np.float64(range_min),
+            "range_max": np.float64(range_max),
+            "ranges": ranges,
+            "stamps": stamps + rng.normal(0, 1e-4, n_steps),
+        },
+        "imu": {
+            "angular_velocity": gyro,
+            "linear_acceleration": acc,
+            "stamps": stamps + rng.normal(0, 1e-4, n_steps),
+        },
+        "rgbd": {"disp_stamps": stamps[:10], "rgb_stamps": stamps[:10]},
+        "ground_truth": gt_poses,
+    }
+
+
+def synthetic_reverse_lap_dataset(
+    n_lap: int = 360,
+    n_rays: int = 541,
+    gyro_scale: float = 0.98,
+    turn_steps: int = 20,
+    radius: float = 3.0,
+    seed: int = 7,
+    range_min: float = 0.1,
+    range_max: float = 30.0,
+) -> Dict:
+    """Drive a circle CCW, turn 180 degrees, retrace it CW: every lap-2
+    pose revisits a lap-1 pose with ~180-degree HEADING DIFFERENCE —
+    the any-heading revisit benchmark. Appearance descriptors cannot
+    propose these (the 270-degree FOV windows barely overlap), but
+    metric proximity + prior-seeded TRIMMED ICP verification
+    (PoseGraphConfig.proximity_seed="estimate", proximity_trim~0.55)
+    measures them to ~mm and the closures restore cross-lap map
+    consistency. gyro_scale biases the measured yaw rate (drift). Same
+    schema as synthetic_dataset; total steps = 2*n_lap + turn_steps.
+    """
+    rng = np.random.default_rng(seed)
+    freq = 40.0
+    dt = 1.0 / freq
+    t0 = 1e9
+    n = 2 * n_lap + turn_steps
+    stamps = t0 + np.arange(n) * dt
+    w0 = 2 * np.pi / (n_lap * dt)
+    v = np.full(n, w0 * radius)
+    w = np.zeros(n)
+    w[:n_lap] = w0
+    w[n_lap:n_lap + turn_steps] = np.pi / (turn_steps * dt)
+    w[n_lap + turn_steps:] = -w0
+    theta = np.cumsum(w * dt)
+    gt_poses = np.stack([np.cumsum(v * dt * np.cos(theta)),
+                         np.cumsum(v * dt * np.sin(theta)), theta], axis=1)
+
+    counts = np.stack([v / (0.0022 * freq)] * 4, axis=1)
+    counts += rng.normal(0, 0.05, counts.shape)
+    gyro = np.zeros((n, 3))
+    gyro[:, 2] = w * gyro_scale + rng.normal(0, 2e-3, n)
+    acc = np.zeros((n, 3))
+    acc[:, 2] = 9.81
+
+    angles = np.linspace(np.radians(-135.0), np.radians(135.0), n_rays)
+    ranges = _raycast_room(gt_poses, angles, range_max, rng)
+    ranges = np.clip(ranges + rng.normal(0, 0.003, ranges.shape), 0.0,
+                     range_max + 5.0)
+    return {
+        "encoder": {"counts": counts, "stamps": stamps},
+        "lidar": {
+            "angle_min": np.radians(-135.0),
+            "angle_max": np.radians(135.0),
+            "angle_increment": np.radians(270.0) / (n_rays - 1),
+            "range_min": np.float64(range_min),
+            "range_max": np.float64(range_max),
+            "ranges": ranges,
+            "stamps": stamps + rng.normal(0, 1e-4, n),
+        },
+        "imu": {
+            "angular_velocity": gyro,
+            "linear_acceleration": acc,
+            "stamps": stamps + rng.normal(0, 1e-4, n),
+        },
+        "rgbd": {"disp_stamps": stamps[:10], "rgb_stamps": stamps[:10]},
+        "ground_truth": gt_poses,
+    }
+
+
+def synthetic_outback_dataset(
+    n_steps: int = 400,
+    n_rays: int = 541,
+    gyro_scale: float = 0.99,
+    turn_steps: int = 40,
+    speed: float = 0.8,
+    seed: int = 3,
+    range_min: float = 0.1,
+    range_max: float = 30.0,
+) -> Dict:
+    """A there-and-back scene: straight out, one 180-degree turn, straight
+    back along (nearly) the same line — so every inbound pose revisits an
+    outbound pose at ~0.5 m lateral offset (the turn diameter) and
+    ~180-degree HEADING DIFFERENCE. This is the opposite-heading revisit
+    case: appearance descriptors fail here (the 270-degree FOV windows
+    barely overlap), but metric proximity proposals + prior-seeded
+    TRIMMED ICP verification close it.
+    gyro_scale biases the measured yaw rate (drift). Same schema as
+    synthetic_dataset.
+    """
+    rng = np.random.default_rng(seed)
+    freq = 40.0
+    dt = 1.0 / freq
+    t0 = 1e9
+    stamps = t0 + np.arange(n_steps) * dt
+    out = (n_steps - turn_steps) // 2
+    v = np.full(n_steps, speed)
+    w = np.zeros(n_steps)
+    w[out:out + turn_steps] = np.pi / (turn_steps * dt)
+    theta = np.cumsum(w * dt)
+    gt_poses = np.stack([np.cumsum(v * dt * np.cos(theta)),
+                         np.cumsum(v * dt * np.sin(theta)), theta], axis=1)
+
+    ticks = v / (0.0022 * freq)
+    counts = np.stack([ticks] * 4, axis=1) + rng.normal(0, 0.05,
+                                                        (n_steps, 4))
+    gyro = np.zeros((n_steps, 3))
+    gyro[:, 2] = w * gyro_scale + rng.normal(0, 2e-3, n_steps)
+    acc = np.zeros((n_steps, 3))
+    acc[:, 2] = 9.81
+
+    angles = np.linspace(np.radians(-135.0), np.radians(135.0), n_rays)
+    ranges = _raycast_room(gt_poses, angles, range_max, rng)
+    ranges = np.clip(ranges + rng.normal(0, 0.003, ranges.shape), 0.0,
+                     range_max + 5.0)
+    return {
+        "encoder": {"counts": counts, "stamps": stamps},
+        "lidar": {
+            "angle_min": np.radians(-135.0),
+            "angle_max": np.radians(135.0),
+            "angle_increment": np.radians(270.0) / (n_rays - 1),
+            "range_min": np.float64(range_min),
+            "range_max": np.float64(range_max),
+            "ranges": ranges,
+            "stamps": stamps + rng.normal(0, 1e-4, n_steps),
+        },
+        "imu": {
+            "angular_velocity": gyro,
+            "linear_acceleration": acc,
+            "stamps": stamps + rng.normal(0, 1e-4, n_steps),
+        },
+        "rgbd": {"disp_stamps": stamps[:10], "rgb_stamps": stamps[:10]},
+        "ground_truth": gt_poses,
+    }
+
+
 def _raycast_room(poses: np.ndarray, angles: np.ndarray, range_max: float,
                   rng: np.random.Generator) -> np.ndarray:
     """Analytic ray distances against a rectangular room plus circular

@@ -35,6 +35,7 @@ from lidar_slam_tpu_torch.models import odometry as todo
 from lidar_slam_tpu_torch.models import online as ton
 from lidar_slam_tpu_torch.online_slam import main as cli_main
 from lidar_slam_tpu_torch.ops import scan as tscan
+from lidar_slam_tpu_torch.utils import export as texport
 from lidar_slam_tpu_torch.utils import interop
 from lidar_slam_tpu_torch.utils import png as tpng
 
@@ -221,10 +222,12 @@ def test_refine_input_checks_match_jax():
         with pytest.raises(ValueError) as te:
             ton.refine(tst, TCFG, **kw)
         assert str(te.value) == str(je.value)
-    bad = dataclasses.replace(TCFG, pose_graph=dataclasses.replace(
-        TCFG.pose_graph, loop_proposer="descriptor"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ton.refine(tst, bad)
+    # a revisit proposer without scans: between factors only, as JAX's
+    desc_j, desc_t = (dataclasses.replace(C, pose_graph=dataclasses.replace(
+        C.pose_graph, loop_proposer="descriptor")) for C in (JCFG, TCFG))
+    np.testing.assert_allclose(ton.refine(tst, desc_t),
+                               jon.refine(jst, desc_j), rtol=0,
+                               atol=REFINE_TOL)
 
 
 def test_checkpoint_resumes_across_packages(tmp_path):
@@ -324,15 +327,68 @@ def test_cli_matches_jax_stream(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--localize", "map.npy"], ["--global_init"], ["--relocalize_on_loss"],
-    ["--export_ros_map", "stem"], ["--refine_loops", "proximity"],
-    ["--refine_loops", "descriptor"], ["--robust_loss", "huber"],
-    ["--robust_loss", "cauchy"], ["--icp_metric", "point_to_line"]])
+    ["--localize", "map.npy"], ["--global_init"], ["--relocalize_on_loss"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as e:
         cli_main(["--synthetic", "10", "--device", "cpu"] + flags)
     assert e.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--export_ros_map", "stem"], ["--refine_loops", "proximity"],
+    ["--refine_loops", "descriptor"], ["--robust_loss", "huber"],
+    ["--robust_loss", "cauchy"], ["--icp_metric", "point_to_line"]])
+def test_cli_runs_lifted_flags(flags, tmp_path, monkeypatch):
+    """Each flag the online CLI refused until the revisit slice now runs a
+    12-step stream (refining every 10 steps with the window's scans) and
+    takes effect: the config online_step and refine receive (refine gets
+    the stream's range span for the descriptor), or the ROS map of the
+    final causal map; with --export_ros_map the files equal the JAX
+    online CLI's byte for byte."""
+    monkeypatch.chdir(tmp_path)
+    seen = {"step": [], "refine": []}
+    real_step, real_refine = ton.online_step, ton.refine
+
+    def step(*a, **kw):
+        seen["step"].append(a[5])
+        return real_step(*a, **kw)
+
+    def refine(st, cfg, **kw):
+        seen["refine"].append((cfg, kw))
+        return real_refine(st, cfg, **kw)
+
+    monkeypatch.setattr(ton, "online_step", step)
+    monkeypatch.setattr(ton, "refine", refine)
+    base = ["--synthetic", "12", "--res", "0.2", "--width", "16",
+            "--height", "16", "--refine_every", "10", "--checkpoint",
+            "ck.npz", "--map_path", "m.png"]
+    if flags[0] != "--refine_loops":
+        base += ["--refine_loops", "fixed"]
+    assert cli_main(base + flags + ["--device", "cpu"]) == 0
+    assert len(seen["step"]) == 11 and len(seen["refine"]) == 1
+    cfg, kw = seen["refine"][0]
+    assert kw["scans"].shape[0] == 11
+    if flags[0] == "--export_ros_map":
+        with np.load("ck.npz") as z:
+            lo = z["logodds"]
+        texport.save_map_ros(lo, cfg.map, "want")
+        assert (open("stem.pgm", "rb").read()
+                == open("want.pgm", "rb").read())
+        import online_slam as jax_online
+
+        jax_online.main(base + ["--export_ros_map", "jstem"])
+        assert (open("stem.pgm", "rb").read()
+                == open("jstem.pgm", "rb").read())
+        assert (open("stem.yaml").read().replace("stem.pgm", "jstem.pgm")
+                == open("jstem.yaml").read())
+    elif flags[0] == "--refine_loops":
+        assert cfg.pose_graph.loop_proposer == flags[1]
+        assert kw["descriptor_range"] == (0.1, 30.0)
+    elif flags[0] == "--robust_loss":
+        assert cfg.pose_graph.robust_loss == flags[1]
+    else:
+        assert all(c.icp.metric == "point_to_line" for c in seen["step"])
 
 
 @pytest.mark.parametrize("argv,msg", [

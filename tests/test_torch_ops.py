@@ -326,3 +326,263 @@ def test_lift_to_3d():
         ticp.lift_to_3d(p).numpy(),
         np.asarray(jicp.lift_to_3d(jnp.asarray(p.numpy()))))
     assert ticp.lift_to_3d(ticp.lift_to_3d(p)).shape == (3, 3)
+
+
+# -- TrICP and PLICP ---------------------------------------------------------
+
+def _rot2(a):
+    return np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                     [0, 0, 1.0]])
+
+
+def _scanlike_cloud(rng, n=240):
+    """tests/test_icp.py's ray-ordered points along two walls."""
+    a = np.stack([np.linspace(-3, 1, n // 2), np.full(n // 2, 2.0),
+                  np.zeros(n // 2)], 1)
+    b = np.stack([np.full(n - n // 2, 1.0),
+                  np.linspace(2.0, -2.0, n - n // 2),
+                  np.zeros(n - n // 2)], 1)
+    return np.concatenate([a, b]) + rng.normal(0, 0.002, (n, 3)) * [1, 1, 0]
+
+
+def _partial_overlap(seed=11):
+    """tests/test_icp.py's partial-overlap pair: 60% common structure."""
+    rng = np.random.default_rng(seed)
+    common = np.concatenate([
+        np.stack([np.linspace(-2, 2, 120), np.full(120, 1.5),
+                  np.zeros(120)], 1),
+        np.stack([np.full(120, -2.0), np.linspace(-1.5, 1.5, 120),
+                  np.zeros(120)], 1)])
+    common += rng.normal(0, 0.005, common.shape)
+    a_side = np.stack([np.linspace(2.5, 4.5, 160), np.full(160, -1.0),
+                       np.zeros(160)], 1) + rng.normal(0, 0.005, (160, 3))
+    b_side = np.stack([np.linspace(3.0, 5.0, 160), np.full(160, -2.0),
+                       np.zeros(160)], 1) + rng.normal(0, 0.005, (160, 3))
+    t = np.array([0.25, -0.15, 0.0])
+    return (np.concatenate([common, a_side]),
+            np.concatenate([common @ _rot2(0.12).T + t, b_side]))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_scan_normals_and_plicp_fit_match_jax(dt):
+    """scan_normals_planar (validity equal; normals within tol) and
+    fit_point_to_line_planar (transforms within 10 tol) on a scan-like
+    cloud with holes and a depth jump, against the JAX functions."""
+    npd, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(20)
+    pts = np.stack([_scanlike_cloud(rng)[:, :2]] * 3).astype(npd)
+    pts[1, 100:110] += 1.0  # a depth discontinuity
+    mask = rng.random(pts.shape[:2]) > 0.05
+    q = (pts @ _rot2(0.05)[:2, :2].T + [0.03, -0.02]).astype(npd)
+    w = rng.random(pts.shape[:2]) > 0.2
+    with _jax_dtype_ctx(npd):
+        jn, jv = jkabsch.scan_normals_planar(jnp.asarray(pts),
+                                             jnp.asarray(mask))
+        jT = jkabsch.fit_point_to_line_planar(jnp.asarray(pts),
+                                              jnp.asarray(q), jn,
+                                              jnp.asarray(w & np.asarray(jv)))
+        jn, jv, jT = map(np.asarray, (jn, jv, jT))
+    tn, tv = tkabsch.scan_normals_planar(torch.from_numpy(pts),
+                                         torch.from_numpy(mask))
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    assert not jv[:, 0].any() and not jv[:, -1].any() and jv.mean() > 0.8
+    assert not jv[1, 99:111].all()
+    _cmp(tn, jn, tol)
+    tT = tkabsch.fit_point_to_line_planar(
+        torch.from_numpy(pts), torch.from_numpy(q), tn,
+        torch.from_numpy(w) & tv)
+    _cmp(tT, jT, 10 * tol)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_trim_mask_matches_jax(dt):
+    """_trim_mask against JAX's: distances quantized so that ties sit at
+    the threshold (all kept), invalid points never kept, a pair with no
+    valid point, q from 0.1 to 0.9."""
+    npd, _, _ = DTYPES[dt]
+    rng = np.random.default_rng(3)
+    d2 = np.round(rng.random((4, 300)) * 20).astype(npd) / 20
+    mask = rng.random((4, 300)) > 0.2
+    mask[3] = False
+    for q in (0.1, 0.55, 0.9):
+        with _jax_dtype_ctx(npd):
+            want = np.asarray(jicp._trim_mask(jnp.asarray(d2),
+                                              jnp.asarray(mask), q))
+        got = ticp._trim_mask(torch.from_numpy(d2), torch.from_numpy(mask),
+                              q).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert not got[~mask].any() and got[0].sum() > q * mask[0].sum()
+
+
+@pytest.mark.parametrize("case", ["tricp", "plicp"])
+def test_tricp_and_plicp_run_icp_batch_match_jax(case):
+    """run_icp_batch with trim_fraction 0.55 on the partial-overlap pair
+    and with metric point_to_line on the interleaved scan-like walls
+    (tests/test_icp.py), float64 with tight stopping rules: iteration
+    counts equal, transforms within 1e-9; the trimmed fit recovers the
+    true translation within 0.02 m and PLICP within 2e-3 m."""
+    if case == "tricp":
+        src, tgt = _partial_overlap()
+        kw = dict(trim_fraction=0.55)
+        t_true, bound = np.array([0.25, -0.15]), 0.02
+    else:
+        src = _scanlike_cloud(np.random.default_rng(21))
+        tgt = (_scanlike_cloud(np.random.default_rng(22), n=173)
+               @ _rot2(0.06).T + [0.10, -0.06, 0.0])
+        kw = dict(metric="point_to_line")
+        t_true, bound = np.array([0.10, -0.06]), 2e-3
+    args = (src[None], tgt[None], np.ones((1, len(src)), bool),
+            np.ones((1, len(tgt)), bool), np.eye(4)[None])
+    rules = dict(epsilon=1e-12, stopping_thresh=1e-10, max_iters=200)
+    jr = jicp.run_icp_batch(*map(jnp.asarray, args), planar=True, **rules,
+                            **kw)
+    tr = ticp.run_icp_batch(*map(torch.from_numpy, args), **rules, **kw)
+    assert int(tr.iters[0]) == int(jr.iters[0]) > 2
+    np.testing.assert_allclose(tr.T.numpy(), np.asarray(jr.T), rtol=0,
+                               atol=1e-9)
+    assert np.linalg.norm(tr.T.numpy()[0, :2, 3] - t_true) < bound
+
+
+@pytest.mark.parametrize("metric", ["point_to_line", "point"])
+def test_plicp_scan_matching_matches_jax(metric):
+    """poses_from_scan_matching under each metric on a 271-ray synthetic
+    log (tests/test_icp.py:419-440), float64: per-pair iteration counts
+    equal (the cycle stop bounds PLICP below 50), poses within 1e-8."""
+    from lidar_slam_tpu.config import IcpConfig as JIcp
+    from lidar_slam_tpu_torch.config import IcpConfig as TIcp
+
+    d = jio.synthetic_dataset(n_steps=40, n_rays=271, seed=3)
+    cfg = LidarConfig(n_rays=271)
+    ranges = d["lidar"]["ranges"]
+    odo = np.asarray(j_odo.poses_from_odometry(
+        jnp.asarray(d["encoder"]["counts"]),
+        jnp.asarray(d["imu"]["angular_velocity"])))
+    jp, jm = jscan.scans_to_points(jnp.asarray(ranges), 0.1, 30.0, cfg)
+    jres = jsm.poses_from_scan_matching(
+        jnp.asarray(odo), jp, jm, JIcp(epsilon=0.001, metric=metric),
+        chunk_size=8)
+    tp, tm = tscan.scans_to_points(torch.from_numpy(ranges), 0.1, 30.0, cfg)
+    tres = tsm.poses_from_scan_matching(
+        torch.from_numpy(odo), tp, tm, TIcp(epsilon=0.001, metric=metric),
+        chunk_size=16)
+    np.testing.assert_array_equal(tres.iters.numpy(), np.asarray(jres.iters))
+    assert 2 < int(tres.iters.max()) < 50
+    np.testing.assert_allclose(tres.poses.numpy(), np.asarray(jres.poses),
+                               rtol=0, atol=1e-8)
+
+
+# -- full width (1,081 rays): where the port and XLA's CPU rounding part ----
+#
+# On the CPU, XLA sums the Kabsch centroids as a tree of 32-wide windows
+# and the cross-covariance as one sequential fused multiply-add chain over
+# the points; torch reduces in its own blocked orders, on the CPU and on
+# the card. So the fit differs from JAX's by a few ULPs from the first
+# iteration on (fed JAX's sums, the port's atan2/cos/sin tail is
+# bit-equal); later iterations meet nearest-neighbour near-ties, which the
+# ULPs flip; and a flip can carry |last_err - err| across the 1e-4 stop.
+# The two tests pin each link: one iteration from JAX's own transform, and
+# the whole scan matching.
+
+FULL = dict(n_steps=40, n_rays=1081, seed=21)
+ULP1 = 2.0 ** -23  # float32 ULP of 1.0
+STEP_T_ULPS = 16  # one iteration from JAX's T (measured 11.8)
+FLIP_GAP_ULPS = 4  # a flip's distance gap in ULPs of |t|^2 (measured 2.3)
+FULL_POSE_TOL = 3e-3  # whole scan matching, poses (measured 2.74e-3)
+FULL_ITER_PAIRS = 5  # pairs of 39 whose iteration count differs (measured)
+
+
+@pytest.fixture(scope="module")
+def full_width_log():
+    """JAX's own float32 points, masks and odometry of a 40-step log at
+    1,081 rays, and JAX's scan matching of it (chunk 16)."""
+    from lidar_slam_tpu import sensors as jsens
+    from lidar_slam_tpu.config import SlamConfig as JSlam
+
+    d = jio.synthetic_dataset(**FULL)
+    enc = jsens.Encoder.from_data(d["encoder"])
+    lid = jsens.Lidar.from_data(d["lidar"])
+    imu = jsens.Imu.from_data(d["imu"])
+    jsens.synchronize_sensors(enc, imu, lid, base_sensor_index=0)
+    cfg = JSlam()
+    with jax.enable_x64(False):
+        pts, masks = jscan.scans_to_points(
+            jnp.asarray(lid.ranges_synced.astype(np.float32)), 0.1, 30.0,
+            cfg.lidar)
+        odo = j_odo.poses_from_odometry(
+            jnp.asarray(enc.counts_synced.astype(np.float32)),
+            jnp.asarray(imu.gyro_synced.astype(np.float32)))
+        sm = jsm.poses_from_scan_matching(odo, pts, masks, cfg.icp,
+                                          chunk_size=16)
+        return dict(pts=np.array(pts), masks=np.array(masks),
+                    odo=np.array(odo), poses=np.asarray(sm.poses),
+                    iters=np.asarray(sm.iters))
+
+
+def test_icp_one_iteration_from_jax_transform_full_width(full_width_log):
+    """Every iteration of every pair of the log: the port's icp_iteration
+    from JAX's own transform T_k against JAX's T_{k+1}. Where no index
+    flips, T within STEP_T_ULPS ULPs of 1.0; every flipped index a near-tie
+    whose two targets' true squared distances differ by at most
+    FLIP_GAP_ULPS ULPs of |t|^2 (the rounding scale of the NN's
+    |t|^2 - 2 s.t)."""
+    g = full_width_log
+    pts3 = np.concatenate([g["pts"], np.zeros(g["pts"].shape[:-1] + (1,),
+                                              np.float32)], -1)
+    src, tgt, sm, tm = pts3[1:], pts3[:-1], g["masks"][1:], g["masks"][:-1]
+    with jax.enable_x64(False):
+        seeds = jse2.TSE3_from_TSE2(jse2.get_relative_pose(
+            jnp.asarray(g["odo"][:-1]), jnp.asarray(g["odo"][1:])))
+        # the clouds are ARGUMENTS of the jitted step: folded in as
+        # constants, XLA evaluates parts of it in yet another order
+        step = jax.jit(lambda a, b, m1, m2, c: jicp.icp_step_batch(
+            a, b, m1, m2, c, 1e-3, 2000, 1e-4, False, True, "jnp"))
+        c = jicp.initial_icp_carry(seeds, src.shape[0], src.shape[1],
+                                   jnp.float32)
+        hist = [c]
+        while not bool(np.asarray(c.done).all()):
+            c = step(*map(jnp.asarray, (src, tgt, sm, tm)), c)
+            hist.append(c)
+    np.testing.assert_array_equal(np.asarray(c.k), g["iters"])
+    ts, tt, tsm, ttm = map(torch.from_numpy, (src, tgt, sm, tm))
+    worst_T, worst_gap, flips = 0.0, 0.0, 0
+    for before, after in zip(hist[:-1], hist[1:]):
+        live = ~np.asarray(before.done)
+        T_k = np.asarray(before.T)
+        T_next, idx, _ = ticp.icp_iteration(ts, tt, tsm, ttm,
+                                            torch.from_numpy(T_k))
+        j_idx = np.asarray(after.idx)
+        flip = (idx.numpy() != j_idx) & live[:, None] & sm
+        same = live & ~flip.any(-1)
+        dT = np.abs(T_next.numpy() - np.asarray(after.T)).max((-1, -2))
+        worst_T = max(worst_T, float(dT[same].max(initial=0.0)))
+        src_t = (np.einsum("bij,bnj->bni", T_k[:, :3, :3].astype(np.float64),
+                           src) + T_k[:, None, :3, 3])
+        for b, n in zip(*np.nonzero(flip)):
+            t_j = tgt[b, j_idx[b, n]].astype(np.float64)
+            d_t = ((src_t[b, n] - tgt[b, idx[b, n]]) ** 2).sum()
+            d_j = ((src_t[b, n] - t_j) ** 2).sum()
+            worst_gap = max(worst_gap, abs(d_t - d_j) / (t_j @ t_j) / ULP1)
+        flips += int(flip.sum())
+    print(f"one iteration from JAX's T, {len(hist) - 1} iterations: T within "
+          f"{worst_T / ULP1:.2f} ULPs where no index flips; {flips} flips, "
+          f"gaps within {worst_gap:.2f} ULPs of |t|^2")
+    assert worst_T <= STEP_T_ULPS * ULP1, worst_T / ULP1
+    assert worst_gap <= FLIP_GAP_ULPS, (worst_gap, flips)
+    assert len(hist) > 10
+
+
+def test_scan_matching_full_width_bound(full_width_log):
+    """The whole scan matching on JAX's own points: poses within
+    FULL_POSE_TOL of JAX's and at most FULL_ITER_PAIRS of the 39 pairs
+    with another iteration count (the near-tie flips above carrying the
+    1e-4 stop); everywhere else equal."""
+    g = full_width_log
+    res = tsm.poses_from_scan_matching(
+        torch.from_numpy(g["odo"]), torch.from_numpy(g["pts"]),
+        torch.from_numpy(g["masks"]), chunk_size=16)
+    differ = int((res.iters.numpy() != g["iters"]).sum())
+    gap = float(np.abs(res.poses.numpy() - g["poses"]).max())
+    print(f"scan matching at 1,081 rays: {differ} of {len(g['iters'])} "
+          f"pairs with another iteration count, poses within {gap:.3e}")
+    assert differ <= FULL_ITER_PAIRS, differ
+    assert gap <= FULL_POSE_TOL, gap

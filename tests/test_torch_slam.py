@@ -285,30 +285,23 @@ def test_cli_image_paths_follow_main_py():
         "images_filtered/a_odom_21.png", "images_filtered/t_odom_21.png")
 
 
-@pytest.mark.parametrize("flags", [["--loop_proposer", "proximity"],
-                                   ["--robust_loss", "huber"],
-                                   ["--icp_metric", "point_to_line"],
-                                   ["--synthetic_revisit", "50"],
-                                   ["--proximity_seed", "estimate"],
-                                   ["--proximity_trim", "0.55"],
-                                   ["--export_ros_map", "m"],
-                                   ["--export_tum", "t.txt"]])
-def test_cli_refuses_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli_main(["--synthetic", "10", "--device", "cpu"] + flags)
-    assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
-
-
 def test_unported_run_slam_options_raise(log):
-    counts, gyro, ranges = (a[:20] for a in log)
+    """The pose-graph solver option runs now: solver="direct" on the fixed
+    graph gives banded's poses within 1e-5 in the same LM iterations
+    (tests/test_pose_graph.py's contract). An unknown mode still raises."""
+    counts, gyro, ranges = (a[:40] for a in log)
     import dataclasses
     cfg = _cfg(tc)
-    bad = dataclasses.replace(cfg, pose_graph=dataclasses.replace(
+    direct = dataclasses.replace(cfg, pose_graph=dataclasses.replace(
         cfg.pose_graph, solver="direct"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, mode="gtsam",
-                       cfg=bad, device="cpu")
+    kw = dict(mode="gtsam", fixed_interval=1, chunk_size=CHUNK,
+              device="cpu", build_map=False)
+    rd = tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, cfg=direct, **kw)
+    rb = tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, cfg=cfg, **kw)
+    assert rd.n_loop_closures == rb.n_loop_closures > 10
+    assert rd.lm_iterations == rb.lm_iterations
+    np.testing.assert_allclose(rd.poses_optimized, rb.poses_optimized,
+                               rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="unknown mode"):
         tslam.run_slam(counts, gyro, ranges, 0.1, 30.0, mode="online")
 
@@ -342,11 +335,13 @@ def test_cuda_device_raises_without_cuda(log, tmp_path):
 
 # main.py's filter settings (eps = 0.1 m) need full 1,081-ray scans: DBSCAN
 # marks nearly every point of a sparser scan as noise. At full width the
-# port's and JAX's scan-matching poses part by up to 4e-3 whether or not
-# the filters run (float32 near-ties and scan points a ULP apart), so the
-# filtered gtsam path is held to POSE_TOL on the file's 181-ray log with
-# settings scaled to its ray spacing, and the CLI at full width in odom
-# mode.
+# port's and JAX's scan-matching poses part by up to 2.74e-3 even on JAX's
+# own points: XLA's CPU reductions round the Kabsch sums a few ULPs apart
+# from torch's, the ULPs flip nearest-neighbour near-ties, and a flip can
+# carry an ICP stop across 1e-4 (5 of 39 pairs on a 40-step log;
+# tests/test_torch_ops.py measures each link). So the filtered gtsam path
+# is held to POSE_TOL on the file's 181-ray log with settings scaled to its
+# ray spacing, and the CLI at full width in odom mode.
 FULL_RAYS = 1081
 SPARSE_FILTER = dict(dbscan_eps=0.7, dbscan_min_samples=5,
                      statistical_k_std=1.0)
