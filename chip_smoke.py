@@ -101,16 +101,37 @@ first failure and catches nothing):
      float64 (float32 printed); (e) a small revisit log on the card and
      on the CPU (the same kept pairs, poses within 1e-3). Each run prints
      its proposals, kept closures, LM iterations, ATE, stage seconds and
-     K4 and K1 launches.
+     K4 and K1 launches;
+ 15. particle filters and relocalization (pf_reloc_phase) on [5]'s log
+     with a 15% encoder bias, on the 1201 x 1201 map: (a) pf_step streamed
+     over 4,956 steps with 256 particles against K1's map of the ground
+     truth (steps/s, per-step p50/p99, errors against ground truth and
+     dead reckoning; the filter below dead reckoning); (b) PF-SLAM with no
+     prior map, its causal map (4,956 raywalk_scan paints) bit-exact
+     against K1 over its track; (c) relocalize_refined at the online
+     CLI's budget for 4 scans on the ground-truth map and scan 600 on the
+     1,200-step log's map (seconds, nodes a level, certificate, K4
+     launches; each grid result equal to the CPU's; where the JAX
+     package finds the pose, the refined pose within 1e-4 of the CPU's and
+     5 cm and 0.03 rad of ground truth, elsewhere within 1e-3 of the
+     CPU's; K4 held to its plain
+     version on the polish's 8 x 1,081 x 4,096 inputs); (d)
+     the kidnapped-robot stream of tests/test_online.py on the card and
+     the CPU (the loss gate at step 300 only, recovered within 5 cm, card
+     vs CPU within 1e-3); (e) a 60 x 181 log, 64 particles, card vs CPU
+     on one noise, each computing its points (points equal, tracks and
+     PF-SLAM maps within 1e-4, resample flags and hit maps equal).
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2 and K4, and
-[12]'s and [14]'s revisit runs apart for K1 and K4; the tools' run in [10]
+[12]'s and [14]'s revisit runs apart for K1 and K4, [15]'s runs apart for
+K1 (a, c), K2 (b, d) and K4 (c, d); the tools' run in [10]
 for P1-P9), its error against its plain version, its,
 the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
-every kernel with its profiler device time; P1-P6 and nn_argmin at B = 1
+every kernel with its profiler device time; nn_argmin also on [15] (c)'s
+polish inputs; P1-P6 and nn_argmin at B = 1
 with their host split; P9 also with the probe tool's slopes), and
 {"ok": true, "device": ...}.
 """
@@ -892,6 +913,396 @@ def revisit_phase(dev, cfg, log21, res5, pts21, masks21) -> dict:
     return launches_rv
 
 
+PF_PARTICLES = 256  # [15] (a), (b): the online CLI's --particles default
+RELOC_SCANS = (600, 1800, 3000, 4200)  # [15] (c): spread over the log
+# [15] (c): on the whole log's ground-truth map (3,806 occupied cells: the
+# later passes' free-space rays carve the walls) the search misses these
+# scans in the JAX package too: its relocalize_refined on the CPU gives the
+# same grid results and refined poses 0.76-16.65 m off
+# (tests/torch_reloc_full_map.py). They stay in the card-against-CPU gates.
+RELOC_ALGORITHM_MISSES = RELOC_SCANS
+# [15] (c): scan 600 of the generator's 1,200-step log (seed 21; a smaller
+# room, so shorter rays) on that log's ground-truth map, which both
+# packages relocalize, certified, and refine within the gate
+RELOC_GATED_SCAN, RELOC_GATED_STEPS = 600, 1200
+RELOC_POS_TOL, RELOC_YAW_TOL = 0.05, 0.03  # [15] (c), (d): m, rad
+# [15] (c): card against CPU, refined poses. Where the pose is found the
+# polish converges (ICP error ~2e-6) and the two agree within 1e-4. On the
+# misses it ends in wrong basins (ICP error 9e-4 to 9e-3) whose nearest-
+# neighbour near-ties flip between the card's kernel and the CPU's plain
+# search, and whose Kabsch sums the two devices add in other orders: the
+# refined poses part by up to 2.27e-4 (scan 600), and on the CPU alone the
+# kernel's rounding in place of the plain search moves them by up to
+# 7.4e-5 (tests/torch_reloc_full_map.py). Those are held to SMALL_POSE_TOL.
+RELOC_REFINED_TOL = 1e-4
+NN_STAGE = 2048  # csrc/nn.cu: targets a shared-memory stage
+# [15] (c): nn_argmin is held to its plain version on this scan's polish
+# inputs: its 8 candidates' target windows hold 3,294-3,806 occupied cells,
+# so valid targets fill both NN_STAGE stages of the 4,096
+RELOC_NN_SCAN = 1800
+SMALL_PF = dict(n_steps=60, n_rays=181, seed=5)  # [15] (e)
+SMALL_PF_TOL = 1e-4  # [15] (e): card against CPU, tracks and maps
+
+
+def pos_err(poses, gt) -> np.ndarray:
+    return np.linalg.norm(np.asarray(poses)[:, :2] - np.asarray(gt)[:, :2],
+                          axis=1)
+
+
+def yaw_err(a: float, b: float) -> float:
+    return abs((a - b + np.pi) % (2 * np.pi) - np.pi)
+
+
+def pf_reloc_phase(dev, cfg) -> tuple:
+    """[15]: particle filters and relocalization on the card, at dataset-20
+    width (the seed-21 log, 4,956 x 1,081, on the online CLI's 1201 x 1201
+    map at 0.05 m) from a 15% encoder bias. (a) pf_step streamed over the
+    log with 256 particles against the known map (K1 over the ground
+    truth): steps/s, per-step p50/p99, mean and final error against ground
+    truth and dead reckoning; the filter's mean error below dead
+    reckoning's. (b) slam_particle_filter, no prior map, K2's counter reset
+    before it: the causal map bit-exact against K1 over the returned
+    track. (c) relocalize_refined at the online CLI's budget (centred,
+    radius half the map's diagonal, 360 angles, beam 4096, 256 rays, 8
+    candidates) for 4 scans on the ground-truth map and for scan 600 on
+    the 1,200-step log's map (K1 again): each grid result equal to the
+    CPU's; where the JAX package finds the pose too (not
+    RELOC_ALGORITHM_MISSES), the refined pose within 1e-4 of the CPU's and
+    5 cm and 0.03 rad of ground truth, elsewhere within SMALL_POSE_TOL of
+    the CPU's (RELOC_REFINED_TOL says why); nn_argmin held to its plain
+    version on scan RELOC_NN_SCAN's polish inputs (8 x 1,081 x 4,096).
+    (d) the kidnapped-robot stream (utils/io.kidnap_log) with
+    relocalize_and_reseed on the card and on the CPU: the loss gate at
+    step 300 only, the recovery within 5 cm and 0.03 rad, card and CPU
+    poses within 1e-3. (e) a 60 x 181 log with 64 particles on the card
+    and the CPU, each computing its own points, on one noise: points
+    equal, tracks within 1e-4, resample flags equal, PF-SLAM maps within
+    1e-4 with equal hit maps. Returns the launches of K1 in (a) and (c),
+    of K2 in (b) and (d), of K4 in (c) and (d), and nn_check's numbers on
+    the polish inputs."""
+    import dataclasses
+    import math
+
+    from lidar_slam_tpu_torch.config import MapConfig, OnlineConfig
+    from lidar_slam_tpu_torch.config import SlamConfig
+    from lidar_slam_tpu_torch.kernels.nn import nn_argmin
+    from lidar_slam_tpu_torch.kernels.raywalk import (raywalk_build,
+                                                      raywalk_scan)
+    from lidar_slam_tpu_torch.models import occupancy, odometry, online
+    from lidar_slam_tpu_torch.models import particle_filter as pf
+    from lidar_slam_tpu_torch.models import pf_slam
+    from lidar_slam_tpu_torch.models import relocalization as rl
+    from lidar_slam_tpu_torch.ops import scan as scan_ops
+    from lidar_slam_tpu_torch.utils import io
+
+    m = MapConfig.from_cli(0.05, 60, 60)
+    K = occupancy.max_ray_cells(m, 30.0)
+    d = io.synthetic_dataset(n_steps=4956, n_rays=1081, seed=21)
+
+    def f32(a, device=dev):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+
+    gt_np = np.asarray(d["ground_truth"], np.float32)
+    gt = f32(gt_np)
+    counts = f32(d["encoder"]["counts"]) * 1.15
+    gyro = f32(d["imu"]["angular_velocity"])
+    pts, masks = scan_ops.scans_to_points(f32(d["lidar"]["ranges"]), 0.1,
+                                          30.0, cfg.lidar)
+    n = pts.shape[0]
+    odo = odometry.poses_from_odometry(counts, gyro, x_0=gt[0]).cpu()
+    err_odo = pos_err(odo, gt_np)
+    launches = {}
+
+    # (a) PF localization against the known map
+    torch.cuda.synchronize()
+    raywalk_build.launches = 0
+    lo_gt = occupancy.build_logodds(gt, pts, masks, m, K)
+    launches["raywalk_build"] = raywalk_build.launches
+    im = rl.hit_map(lo_gt)
+    pcfg = pf.PFConfig(n_particles=PF_PARTICLES)
+    v_all = odometry.v_from_encoder(counts)
+    w_all = gyro[:, -1]
+
+    def localize(steps):
+        st = pf.init_pf_state(pcfg, gt[0], seed=0, device=dev)
+        track, step_s = [gt[0]], []
+        for t in range(1, steps):
+            t0 = time.perf_counter()
+            st, (est, _, _) = pf.pf_step(st, v_all[t], w_all[t], pts[t],
+                                         masks[t], im, m, pcfg)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            track.append(est)
+        return torch.stack(track).cpu().numpy(), np.asarray(step_s)
+
+    localize(50)  # warm-up
+    track_a, step_s = localize(n)
+    err_a = pos_err(track_a, gt_np)
+    p50, p99 = (float(np.percentile(step_s, q)) * 1e3 for q in (50, 99))
+    print(f"[15] (a) PF localization, {n} steps x 1081 rays, "
+          f"{PF_PARTICLES} particles, 1201 x 1201 known map (K1 over the "
+          f"ground truth, launches {launches['raywalk_build']}): "
+          f"{(n - 1) / step_s.sum():.1f} steps/s, per-step p50 {p50:.3f} "
+          f"ms, p99 {p99:.3f} ms; position error mean {err_a.mean():.4f} m, "
+          f"final {err_a[-1]:.4f} m; dead reckoning (15% encoder bias) mean "
+          f"{err_odo.mean():.4f} m, final {err_odo[-1]:.4f} m", flush=True)
+    if not np.isfinite(track_a).all():
+        fail("[15] (a) the PF track is not finite")
+    if not err_a.mean() < err_odo.mean():
+        fail("[15] (a) the filter's mean error is not below dead "
+             "reckoning's")
+
+    # (b) PF-SLAM, no prior map
+    pf_slam.slam_particle_filter(counts[:50], gyro[:50], pts[:50],
+                                 masks[:50], m, pcfg, x0=gt[0], K=K,
+                                 device=dev)  # warm-up
+    torch.cuda.synchronize()
+    raywalk_scan.launches = 0
+    t0 = time.perf_counter()
+    track_b, lo_b, aux_b = pf_slam.slam_particle_filter(
+        counts, gyro, pts, masks, m, pcfg, x0=gt[0], K=K, seed=0, device=dev)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches["raywalk_scan"] = raywalk_scan.launches
+    g_k1 = raywalk_build(occupancy.ray_ends(track_b, pts, m), masks, m, K)
+    diff_b = float((lo_b - g_k1).abs().max())
+    track_b = track_b.cpu().numpy()
+    err_b = pos_err(track_b, gt_np)
+    print(f"[15] (b) PF-SLAM, {n} steps, {PF_PARTICLES} particles, no prior "
+          f"map: {(n - 1) / wall_b:.1f} steps/s ({wall_b:.3f} s), "
+          f"{int(aux_b['resampled'].sum())} resamples; position error mean "
+          f"{err_b.mean():.4f} m, final {err_b[-1]:.4f} m (dead reckoning "
+          f"{err_odo.mean():.4f}, {err_odo[-1]:.4f}); raywalk_scan launches "
+          f"{launches['raywalk_scan']}; causal map vs raywalk_build over the "
+          f"track: max |diff| {diff_b}, occupied cells "
+          f"{int((lo_b > 0).sum())}", flush=True)
+    if not np.isfinite(track_b).all():
+        fail("[15] (b) the PF-SLAM track is not finite")
+    if launches["raywalk_scan"] != n:
+        fail(f"[15] (b) raywalk_scan launched {launches['raywalk_scan']} "
+             f"times, expected {n}")
+    if diff_b != 0.0 or int((lo_b > 0).sum()) < 1000:
+        fail("[15] (b) the causal map disagrees with raywalk_build")
+
+    # (c) global relocalization at the online CLI's budget
+    rcfg = rl.RelocConfig(search_radius=0.5 * math.hypot(60.0, 60.0),
+                          beam=4096, n_angles=360, max_rays=256)
+    S = int(np.ceil(rcfg.search_radius / m.resolution))
+    T = -((-(2 * S + 1)) // (1 << (rcfg.n_levels - 1)))
+    nodes = [rcfg.n_angles * T * T] + [4 * rcfg.beam] * (rcfg.n_levels - 1)
+    center = (0.0, 0.0)
+    d_s = io.synthetic_dataset(n_steps=RELOC_GATED_STEPS, n_rays=1081,
+                               seed=21)
+    gt_s = np.asarray(d_s["ground_truth"], np.float32)
+    pts_s, masks_s = scan_ops.scans_to_points(f32(d_s["lidar"]["ranges"]),
+                                              0.1, 30.0, cfg.lidar)
+    torch.cuda.synchronize()
+    raywalk_build.launches = 0
+    lo_s = occupancy.build_logodds(f32(gt_s), pts_s, masks_s, m, K)
+    launches["raywalk_build"] += raywalk_build.launches
+    # (map name, map, the log's points, masks and ground truth, scan,
+    # refined-pose gate)
+    cases = [("the log's map", lo_gt, pts, masks, gt_np, k,
+              k not in RELOC_ALGORITHM_MISSES) for k in RELOC_SCANS]
+    cases.append((f"the {RELOC_GATED_STEPS}-step log's map", lo_s, pts_s,
+                  masks_s, gt_s, RELOC_GATED_SCAN, True))
+    rl.relocalize_refined(lo_gt, m, pts[RELOC_SCANS[0]],
+                          masks[RELOC_SCANS[0]], rcfg, center,
+                          n_candidates=8)  # warm-up
+    torch.cuda.synchronize()
+    nn_argmin.launches = 0
+    results = []
+    for name, lo, p_, m_, gt_, k, gated in cases:
+        t0 = time.perf_counter()
+        g, r, e = rl.relocalize_refined(lo, m, p_[k], m_[k], rcfg, center,
+                                        n_candidates=8)
+        torch.cuda.synchronize()
+        results.append((name, lo, p_[k], m_[k], gt_[k], k, gated, g,
+                        r.cpu(), float(e), time.perf_counter() - t0))
+    launches["nn_argmin"] = nn_argmin.launches
+    bad = []
+    for name, _, _, _, gk, k, gated, g, r, e, sec in results:
+        gp, r = g.pose.cpu().numpy(), r.numpy()
+        ge, re_ = (float(np.hypot(*(p[:2] - gk[:2]))) for p in (gp, r))
+        print(f"[15] (c) relocalize scan {k} on {name}: {sec:.3f} s; nodes "
+              f"scored a level {nodes}; grid score {float(g.score):.0f}, "
+              f"certified {bool(g.certified)}, pruned_margin "
+              f"{float(g.pruned_margin):.0f}; grid pose error {ge:.4f} m, "
+              f"{yaw_err(gp[2], gk[2]):.4f} rad; refined {re_:.4f} m, "
+              f"{yaw_err(r[2], gk[2]):.4f} rad (ICP error {e:.3e})",
+              flush=True)
+        if gated and (re_ > RELOC_POS_TOL
+                      or yaw_err(r[2], gk[2]) > RELOC_YAW_TOL):
+            bad.append((k, name))
+    # each call again on the CPU: the grid result exactly equal (node
+    # scores are integer sums, so equal base cells give equal results; the
+    # base cells' card-against-CPU differences are counted, and where any
+    # differ the CPU searches from the card's base cells), the refined pose
+    # within RELOC_REFINED_TOL where found, SMALL_POSE_TOL on the misses
+    angles = rl._angles(rcfg)
+    ctr = torch.tensor(center, dtype=torch.float32)
+    for name, lo, pk, mk, _, k, gated, g, r, _, _ in results:
+        base_g = rl._base_cells(pk, mk, ctr.to(dev), angles, m,
+                                rcfg.max_rays)
+        base_c = rl._base_cells(pk.cpu(), mk.cpu(), ctr, angles, m,
+                                rcfg.max_rays)
+        flips = sum(int((a.cpu() != b).sum()) for a, b in zip(base_g,
+                                                              base_c))
+        t0 = time.perf_counter()
+        g_c, r_c, _ = rl.relocalize_refined(lo.cpu(), m, pk.cpu(), mk.cpu(),
+                                            rcfg, center, n_candidates=8)
+        cpu_s = time.perf_counter() - t0
+        if flips:
+            g_c = rl.search(rl.hit_map(lo.cpu()), m,
+                            tuple(b.cpu() for b in base_g), rcfg, center)
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(g, (g_c.pose, g_c.score, g_c.certified,
+                           g_c.pruned_margin)))
+        gap = float((r - r_c).abs().max())
+        tol = RELOC_REFINED_TOL if gated else SMALL_POSE_TOL
+        print(f"[15] (c) scan {k} on {name}, card vs CPU (CPU "
+              f"relocalize_refined {cpu_s:.1f} s; base cells differing: "
+              f"{flips}): grid pose, score, certificate and margin equal "
+              f"{same}; refined pose max diff {gap:.3e} (gate {tol:g})",
+              flush=True)
+        if not same:
+            fail(f"[15] (c) scan {k}: the card's grid result differs from "
+                 f"the CPU's")
+        if gap > tol:
+            fail(f"[15] (c) scan {k}: the card's refined pose differs from "
+                 f"the CPU's")
+    # nn_argmin on the polish's first ICP iteration (the ICP starts from
+    # the identity): 8 candidates x 1,081 sources x 4,096 targets, valid
+    # targets past the first NN_STAGE, so the kernel's staged loop runs
+    k = RELOC_NN_SCAN
+    _, leaves = rl.relocalize(im, m, pts[k], masks[k], rcfg, center,
+                              return_leaves=True)
+    cand, _ = rl.top_candidates(leaves, angles, center, m, 8)
+    s_p, t_p, _, tm_p = rl.polish_inputs(lo_gt, m, pts[k], masks[k], cand,
+                                         rcfg)
+    past = int(tm_p[:, NN_STAGE:].sum())
+    nn_r = nn_check(s_p, t_p, tm_p, 20)
+    print(f"[15] (c) nn_argmin on scan {k}'s polish inputs, "
+          f"{' x '.join(map(str, (*s_p.shape[:2], t_p.shape[1])))} "
+          f"(valid targets a candidate {tm_p.sum(-1).tolist()}, {past} past "
+          f"the first {NN_STAGE}-target stage): {NN_EXACT}; vs plain: index "
+          f"flips {nn_r[0]:.5f}, max chosen-distance gap {nn_r[1]:.3e}; "
+          f"kernel {nn_r[2]:.4f} ms, plain {nn_r[3]:.4f} ms, torch.cdist + "
+          f"argmin {nn_r[4]:.4f} ms; bound {nn_r[5][0]:.5f} ms "
+          f"({nn_r[5][1]})", flush=True)
+    if past == 0:
+        fail("[15] (c) the polish's targets never reach nn_argmin's second "
+             "stage")
+    print(f"[15] (c) nn_argmin launches over the {len(results)} calls "
+          f"{launches['nn_argmin']}; refined-pose gate on "
+          f"{[(r[5], r[0]) for r in results if r[6]]} "
+          f"(the others miss in the JAX package too)", flush=True)
+    if launches["nn_argmin"] == 0:
+        fail("[15] (c) nn_argmin was not launched by the polish")
+    if bad:
+        fail(f"[15] (c) refined poses off ground truth for scans {bad}")
+
+    # (d) the kidnapped-robot stream, card and CPU
+    counts_k, gyro_k, ranges_k, gt_k = io.kidnap_log()
+    base = SlamConfig()
+    cfg_k = dataclasses.replace(
+        base, map=MapConfig(resolution=0.1, world_min_x=-15.0,
+                            world_max_x=15.0, world_min_y=-15.0,
+                            world_max_y=15.0),
+        icp=dataclasses.replace(base.icp, metric="point_to_line"),
+        online=OnlineConfig(loss_rms_thresh=0.3))
+    Kk = online.default_ray_cells(cfg_k, 30.0)
+
+    def kidnap_stream(device):
+        pk, mk = scan_ops.scans_to_points(f32(ranges_k, device), 0.1, 30.0,
+                                          cfg_k.lidar)
+        ck, gk = f32(counts_k, device), f32(gyro_k, device)
+        st = online.init_state(pk[0], mk[0], cfg_k, n_max=512, K=Kk,
+                               device=device)
+        track, fired, t0 = [st.pose], [], time.perf_counter()
+        for t in range(1, pk.shape[0]):
+            st = online.online_step(st, ck[t], gk[t], pk[t], mk[t], cfg_k,
+                                    K=Kk)
+            if float(st.match_rms) > cfg_k.online.loss_rms_thresh:
+                fired.append(t)
+                st, _, _ = online.relocalize_and_reseed(st, cfg_k, K=Kk)
+            track.append(st.pose)
+        return (torch.stack(track).cpu().numpy(), fired,
+                time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    raywalk_scan.launches = nn_argmin.launches = 0
+    track_g, fired_g, wall_g = kidnap_stream(dev)
+    l_scan, l_nn = raywalk_scan.launches, nn_argmin.launches
+    launches["raywalk_scan"] += l_scan
+    launches["nn_argmin"] += l_nn
+    track_c, fired_c, wall_c = kidnap_stream("cpu")
+    tk = 300
+    rec = track_g[tk]
+    rec_pos = float(np.hypot(*(rec[:2] - gt_k[tk, :2])))
+    rec_yaw = yaw_err(rec[2], gt_k[tk, 2])
+    gap = float(np.abs(track_g - track_c).max())
+    print(f"[15] (d) kidnap stream ({counts_k.shape[0]} steps x 541 rays, "
+          f"PLICP, loss gate 0.3 m): loss gate fired at {fired_g} (CPU "
+          f"{fired_c}); recovered {rec_pos:.4f} m, {rec_yaw:.4f} rad from "
+          f"ground truth; final error "
+          f"{float(np.hypot(*(track_g[-1, :2] - gt_k[-1, :2]))):.4f} m; card "
+          f"{wall_g:.2f} s, CPU {wall_c:.2f} s; card vs CPU max pose diff "
+          f"{gap:.3e}; launches raywalk_scan {l_scan}, nn_argmin {l_nn}",
+          flush=True)
+    if fired_g != [tk] or fired_c != [tk]:
+        fail("[15] (d) the loss gate did not fire at the kidnap step only")
+    if rec_pos > RELOC_POS_TOL or rec_yaw > RELOC_YAW_TOL:
+        fail("[15] (d) the kidnap was not recovered")
+    if gap > SMALL_POSE_TOL:
+        fail("[15] (d) card and CPU kidnap streams disagree")
+
+    # (e) a small log, card against CPU, on one noise
+    ds = io.synthetic_dataset(**SMALL_PF)
+    ms = MapConfig(resolution=0.1, world_max_x=15, world_min_x=-15,
+                   world_max_y=15, world_min_y=-15)
+    P, ns = 64, SMALL_PF["n_steps"]
+    gen = torch.Generator().manual_seed(0)
+    noise = (torch.randn((ns - 1, P), generator=gen),
+             torch.randn((ns - 1, P), generator=gen),
+             torch.rand((ns - 1,), generator=gen))
+    scfg = pf.PFConfig(n_particles=P)
+    outs = []
+    for device in (dev, "cpu"):
+        ps, mks = scan_ops.scans_to_points(f32(ds["lidar"]["ranges"], device),
+                                           0.1, 30.0, cfg.lidar)
+        gts = f32(ds["ground_truth"], device)
+        cs = f32(ds["encoder"]["counts"], device) * 1.15
+        gs = f32(ds["imu"]["angular_velocity"], device)
+        Ks = occupancy.adaptive_ray_cells(ps, mks, ms, 30.0)
+        im_s = rl.hit_map(occupancy.build_logodds(gts, ps, mks, ms, Ks))
+        loc = pf.localize_particle_filter(im_s, cs, gs, ps, mks, ms, scfg,
+                                          x0=gts[0], noise=noise,
+                                          device=device)
+        sl = pf_slam.slam_particle_filter(cs, gs, ps, mks, ms, scfg,
+                                          x0=gts[0], K=Ks, noise=noise,
+                                          device=device)
+        outs.append([t.cpu() for t in (loc[0], loc[1]["resampled"], sl[0],
+                                       sl[1], sl[2]["resampled"], ps)])
+    (lg, rg, sg, mg, srg, pg), (lc, rc, sc, mc, src, pc) = outs
+    gaps = [float((a - b).abs().max()) for a, b in ((lg, lc), (sg, sc),
+                                                     (mg, mc))]
+    flags = torch.equal(rg, rc) and torch.equal(srg, src)
+    hits = torch.equal(mg > 0, mc > 0)
+    print(f"[15] (e) small log ({ns} x {SMALL_PF['n_rays']}, {P} particles) "
+          f"card vs CPU on one noise (points computed on each, equal "
+          f"{torch.equal(pg, pc)}): localization track "
+          f"max diff {gaps[0]:.3e}, PF-SLAM track {gaps[1]:.3e}, map "
+          f"{gaps[2]:.3e}; "
+          f"resample flags equal {flags} ({int(rg.sum())} and "
+          f"{int(srg.sum())} resamples); hit maps equal {hits}", flush=True)
+    if (max(gaps) > SMALL_PF_TOL or not flags or not hits
+            or not torch.equal(pg, pc)):
+        fail("[15] (e) the card's particle filters disagree with the CPU's")
+    return launches, nn_r
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1434,6 +1845,8 @@ def main() -> int:
     texture_phase(dev, cfg)
     # 14. revisit loop closures
     launches_rv = revisit_phase(dev, cfg, log21, res, pts21, masks21)
+    # 15. particle filters and relocalization
+    launches_pf, nn_pf = pf_reloc_phase(dev, cfg)
 
     print(card)
     # launches: the main paths' runs, gtsam [5] plus online [8]; the
@@ -1443,14 +1856,17 @@ def main() -> int:
          "source": "lidar_slam_tpu_torch/csrc/nn.cu",
          "replaces": "lidar_slam_tpu/ops/pallas_nn.py:64",
          "launches": launches["nn_argmin"] + launches_on["nn_argmin"],
-         "max_abs_err": max(gap, gap1), "ms": nn_ms,
+         "max_abs_err": max(gap, gap1, nn_pf[1]), "ms": nn_ms,
          "plain_ms": nn_plain_ms, "bound_ms": nn_bound[0],
          "bound_by": nn_bound[1], "library_ms": nn_lib_ms,
          "device_ms": dev_nn, "ms_b1": nn1_ms, "plain_ms_b1": nn1_plain_ms,
          "library_ms_b1": nn1_lib_ms, "bound_ms_b1": nn1_bound[0],
          "device_ms_b1": dev_nn1, "host_us_b1": split["nn_argmin_b1"],
          "launches_filtered": launches_f["nn_argmin"],
-         "launches_revisit": launches_rv["nn_argmin"]},
+         "launches_revisit": launches_rv["nn_argmin"],
+         "launches_pf_reloc": launches_pf["nn_argmin"],
+         "ms_reloc": nn_pf[2], "plain_ms_reloc": nn_pf[3],
+         "library_ms_reloc": nn_pf[4], "bound_ms_reloc": nn_pf[5][0]},
         # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
@@ -1463,7 +1879,8 @@ def main() -> int:
          "device_ms_bin": k1_ms["bin"], "device_ms_walk": k1_ms["walk"],
          "owner_side": OWNER_SIDE, "hot_crossings": hot,
          "launches_filtered": launches_f["raywalk_build"],
-         "launches_revisit": launches_rv["raywalk_build"]},
+         "launches_revisit": launches_rv["raywalk_build"],
+         "launches_pf_reloc": launches_pf["raywalk_build"]},
         {"name": "raywalk_scan", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
          "replaces": "lidar_slam_tpu/ops/raywalk.py:461",
@@ -1471,7 +1888,8 @@ def main() -> int:
          "max_abs_err": max(diff_scan, diff_delta, diff_k1),
          "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound[0], "bound_by": scan_bound[1],
-         "library_ms": None, "device_ms": dev_scan},
+         "library_ms": None, "device_ms": dev_scan,
+         "launches_pf_reloc": launches_pf["raywalk_scan"]},
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

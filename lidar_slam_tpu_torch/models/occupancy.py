@@ -22,6 +22,7 @@ adds in ray order, so their float32 maps are equal bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Tuple
 
@@ -30,19 +31,32 @@ import torch
 
 from ..config import LidarConfig, MapConfig
 from ..ops.bresenham import bresenham_fixed
+from ..utils.precision import in_float64
 
 
 def world2grid(x: torch.Tensor, y: torch.Tensor,
                cfg: MapConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """World meters -> int32 cell indices: ceil((x - min)/res) - 1.
-
-    The resolution is divided as a tensor on x's device: a Python-scalar
-    divisor lets CUDA multiply by its reciprocal instead, which rounds
-    differently and can move a cell boundary."""
-    res = torch.tensor(cfg.resolution, dtype=x.dtype, device=x.device)
-    i = torch.ceil((x - cfg.world_min_x) / res).to(torch.int32) - 1
-    j = torch.ceil((y - cfg.world_min_y) / res).to(torch.int32) - 1
+    """World meters -> int32 cell indices: ceil((x - min)/res) - 1,
+    computed as ceil((x - min) * (1/res)) - 1 with 1/res rounded to x's
+    dtype, as the JAX package computes it: XLA rewrites a division by the
+    constant res into that product on every backend, and the two differ
+    at cell boundaries (at res = 0.05 on random float32 x). The reciprocal
+    is rounded to x's dtype on the host and multiplies as an exact Python
+    scalar, so the CPU and CUDA round one product alike and nothing is
+    copied to the device."""
+    inv = (1.0 / cfg.resolution if x.dtype == torch.float64
+           else float(np.float32(1.0) / np.float32(cfg.resolution)))
+    i = torch.ceil((x - cfg.world_min_x) * inv).to(torch.int32) - 1
+    j = torch.ceil((y - cfg.world_min_y) * inv).to(torch.int32) - 1
     return i, j
+
+
+def grid2world(i: torch.Tensor, j: torch.Tensor,
+               cfg: MapConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cell indices -> world meters, i * res + min (reference
+    modules/ogm.py:126-147): the cell's low edge."""
+    return (i * cfg.resolution + cfg.world_min_x,
+            j * cfg.resolution + cfg.world_min_y)
 
 
 def max_ray_cells(cfg: MapConfig, range_max: float) -> int:
@@ -72,9 +86,11 @@ def ray_ends(poses: torch.Tensor, points: torch.Tensor,
     poses (..., 3), points (..., R, 2) robot-frame scan points (already
     including the lidar offset). Returns (..., R, 4) int32 rows
     (sx, sy, ex, ey): the origin cell (robot xy + unrotated p_rl) and the
-    endpoint cell (rotated point + robot xy)."""
+    endpoint cell (rotated point + robot xy). The yaw's cos and sin are
+    rounded once from float64 (utils/precision.in_float64), so the card's
+    cells equal the CPU's."""
     x, y, yaw = poses[..., 0:1], poses[..., 1:2], poses[..., 2:3]
-    c, s = torch.cos(yaw), torch.sin(yaw)
+    c, s = in_float64(torch.cos, yaw), in_float64(torch.sin, yaw)
     wx = points[..., 0] * c - points[..., 1] * s + x
     wy = points[..., 0] * s + points[..., 1] * c + y
     p_rl = LidarConfig().p_rl
@@ -196,3 +212,80 @@ def render_logodds(logodds) -> np.ndarray:
     den = lo.max() - lo.min()
     norm = (lo - lo.min()) / (den if den > 0 else 1.0)
     return (np.sqrt(norm) * 255.0).astype(np.uint8)
+
+
+@dataclasses.dataclass
+class OccupancyGridMap:
+    """Stateful wrapper with the reference class's surface (reference
+    modules/ogm.py:5-64) over the functional core above, on `device`:
+    update_map paints one scan in place (raywalk_scan on the card),
+    build_map a whole log onto the current grid (raywalk_build on the
+    card)."""
+
+    cfg: MapConfig
+    range_max: float = 30.0
+    device: str = "cuda"
+
+    def __post_init__(self):
+        from .slam import resolve_device
+
+        self.dev = resolve_device(self.device)
+        self.grid_map_width = self.cfg.width
+        self.grid_map_height = self.cfg.height
+        self.res = self.cfg.resolution
+        self.logodds_ratio = self.cfg.logodds_ratio
+        self.K = max_ray_cells(self.cfg, self.range_max)
+        self.grid_map_log_odds = torch.zeros(
+            (self.cfg.width, self.cfg.height), dtype=torch.float32,
+            device=self.dev)
+        self.grid_map = np.zeros((self.cfg.width, self.cfg.height), np.uint8)
+
+    @classmethod
+    def create(cls, resolution, world_map_max_x, world_map_max_y,
+               world_map_min_x, world_map_min_y, buffer=1.0, range_max=30.0,
+               device="cuda"):
+        cfg = MapConfig(resolution=resolution, world_max_x=world_map_max_x,
+                        world_max_y=world_map_max_y,
+                        world_min_x=world_map_min_x,
+                        world_min_y=world_map_min_y, buffer=buffer)
+        return cls(cfg=cfg, range_max=range_max, device=device)
+
+    def _f32(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.dev)
+
+    def world2grid(self, x, y) -> np.ndarray:
+        i, j = world2grid(self._f32(x), self._f32(y), self.cfg)
+        return np.stack([i.cpu().numpy().reshape(-1),
+                         j.cpu().numpy().reshape(-1)], axis=-1).squeeze()
+
+    def grid2world(self, i, j) -> np.ndarray:
+        x, y = grid2world(torch.as_tensor(np.asarray(i)),
+                          torch.as_tensor(np.asarray(j)), self.cfg)
+        return np.stack([x.numpy().reshape(-1), y.numpy().reshape(-1)],
+                        axis=-1).squeeze()
+
+    def update_map(self, x_t, z_t, mask=None):
+        z_t = self._f32(z_t)
+        mask = (torch.ones(z_t.shape[0], dtype=torch.bool, device=self.dev)
+                if mask is None
+                else torch.as_tensor(np.asarray(mask), device=self.dev))
+        update_map(self.grid_map_log_odds, self._f32(x_t), z_t[:, :2],
+                   mask.contiguous(), self.cfg, self.K)
+
+    def build_map(self, states, meas, masks=None):
+        meas = self._f32(meas)
+        masks = (torch.ones(meas.shape[:2], dtype=torch.bool, device=self.dev)
+                 if masks is None
+                 else torch.as_tensor(np.asarray(masks), device=self.dev))
+        self.grid_map_log_odds = build_logodds(
+            self._f32(states), meas[..., :2], masks.contiguous(), self.cfg,
+            self.K, init=self.grid_map_log_odds)
+        self.grid_map = finalize_grid(self.grid_map_log_odds).cpu().numpy()
+
+    def plot_log_odds_map(self, fname):
+        from ..utils.png import write_png
+        write_png(fname, render_logodds(self.grid_map_log_odds))
+
+    def plot_map(self, fname):
+        from ..utils.png import write_png
+        write_png(fname, (np.asarray(self.grid_map) * 255).astype(np.uint8))

@@ -15,6 +15,10 @@ CUDA tensors) and are shared with the returned state, so a step neither
 allocates nor copies the 5.8 MB grid. Keep a copy (or a checkpoint) of a
 state that must survive the next step.
 
+relocalize_and_reseed() recovers a kidnapped robot: the certified global
+search and ICP polish of models/relocalization against the causal map,
+then the stream re-seeded at the recovered pose.
+
 refine() smooths the retained window with the pose-graph solve of the gtsam
 stage, optionally with gated fixed-interval loop closures from the window's
 scans and, under the proximity or descriptor proposer, verified in-window
@@ -170,6 +174,61 @@ def online_step(state: OnlineState, counts, gyro, points, mask,
         rel_hist=state.rel_hist,
         match_rms=rms,
     )
+
+
+def relocalize_and_reseed(state: OnlineState, cfg: SlamConfig,
+                          K: int | None = None, reloc_cfg=None,
+                          paint: bool = True):
+    """Kidnapped-robot recovery for the streaming mode (a rare event, not a
+    per-step path), on the state's device.
+
+    Runs the certified global search + ICP polish
+    (relocalization.relocalize_refined) for the CURRENT scan against the
+    CAUSAL map, then re-seeds the stream at the recovered pose: the
+    current history slot gets that pose, and the slot's between-factor
+    the estimated jump (the kidnap was motion the odometry never measured,
+    so refine()'s chain stays consistent across it). The held-out scan,
+    which the loss gate did not paint, is painted at the recovered pose by
+    update_map when `paint`. Consumes `state` as online_step does (grid
+    and ring buffers in place). Returns (new_state, RelocResult,
+    icp_error).
+    """
+    from .relocalization import RelocConfig, relocalize_refined
+
+    if K is None:
+        K = default_ray_cells(cfg)
+    m = cfg.map
+    if reloc_cfg is None:
+        # the whole mapped area: centred on the map, radius half its
+        # diagonal
+        reloc_cfg = RelocConfig(
+            search_radius=0.5 * math.hypot(m.world_max_x - m.world_min_x,
+                                           m.world_max_y - m.world_min_y),
+            beam=cfg.online.reloc_beam,
+            n_angles=cfg.online.reloc_n_angles,
+            max_rays=cfg.online.reloc_max_rays)
+    center = (0.5 * (m.world_min_x + m.world_max_x),
+              0.5 * (m.world_min_y + m.world_max_y))
+    grid_res, refined, icp_err = relocalize_refined(
+        state.logodds, m, state.prev_points[:, :2], state.prev_mask,
+        reloc_cfg, center=center,
+        n_candidates=cfg.online.reloc_candidates)
+    refined = refined.to(torch.float32)
+
+    n_max = state.poses_hist.shape[0]
+    step = int(state.step)
+    prev_pose = state.poses_hist[(step - 1) % n_max]
+    jump = se2.get_relative_pose(prev_pose, refined).to(torch.float32)
+    if paint:
+        occupancy.update_map(state.logodds, refined,
+                             state.prev_points[:, :2], state.prev_mask, m, K)
+    state.poses_hist[step % n_max] = refined
+    state.rel_hist[step % n_max] = jump
+    new_state = state._replace(
+        pose=refined,
+        match_rms=torch.zeros((), dtype=torch.float32,
+                              device=refined.device))
+    return new_state, grid_res, icp_err
 
 
 def window_start(state: OnlineState) -> int:

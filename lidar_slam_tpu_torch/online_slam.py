@@ -4,6 +4,9 @@
     python -m lidar_slam_tpu_torch.online_slam --dataset 20 --dataset_path data/
     python -m lidar_slam_tpu_torch.online_slam --synthetic 500 \
         --checkpoint ck.npz --resume
+    python -m lidar_slam_tpu_torch.online_slam --synthetic 500 \
+        --localize map.npy        # PF localization against a saved map
+        # (map.npy from `python -m lidar_slam_tpu_torch --save_logodds`)
 
 Counterpart of online_slam.py: it feeds one synchronized (encoder, gyro,
 scan) tuple at a time through models/online.online_step, with optional
@@ -14,10 +17,13 @@ writes the same outputs: the causal map as a PNG (--map_path) and, with
 including step 0 (--poses_path, .npy) and the checkpoint.
 --refine_loops proximity|descriptor adds verified in-window revisit
 closures to the refinement, --robust_loss huber|cauchy a robust kernel on
-its loop factors, --icp_metric point_to_line PLICP scan matching. The
-flags of relocalization and particle-filter localization, which are not
-ported yet (--localize, --global_init, --relocalize_on_loss), are refused
-with "not yet ported".
+its loop factors, --icp_metric point_to_line PLICP scan matching.
+--relocalize_on_loss gates the stream on the scan match's RMS (--loss_rms)
+and recovers a lost pose by certified global relocalization against the
+causal map. --localize MAP.npy streams particle-filter localization
+(--particles, --x0) against a saved log-odds grid instead of SLAM;
+--global_init first relocalizes scan 0 in that map and seeds the
+particles around the fix.
 """
 
 from __future__ import annotations
@@ -65,7 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint instead of starting fresh")
     p.add_argument("--relocalize_on_loss", action="store_true",
-                   help="(not yet ported)")
+                   help="detect tracking loss (scan-match RMS above "
+                        "--loss_rms): the lost step coasts on odometry "
+                        "without painting the map, then certified global "
+                        "relocalization against the causal map re-seeds "
+                        "the stream (kidnapped-robot recovery)")
     p.add_argument("--loss_rms", type=float, default=0.3,
                    help="tracking-loss threshold for --relocalize_on_loss: "
                         "RMS point-to-correspondence distance in meters")
@@ -76,31 +86,118 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--poses_path", type=str, default=None,
                    help="save the streamed pose track (.npy)")
     p.add_argument("--localize", type=str, default=None, metavar="MAP.npy",
-                   help="(not yet ported)")
+                   help="localization-only serving mode: stream "
+                        "particle-filter localization against this saved "
+                        "log-odds grid (.npy, e.g. --save_logodds output), "
+                        "built with the same --res/--width/--height")
     p.add_argument("--particles", type=int, default=256,
                    help="particle count for --localize")
     p.add_argument("--x0", type=str, default=None, metavar="X,Y,YAW",
                    help="initial pose for --localize (default 0,0,0)")
     p.add_argument("--global_init", action="store_true",
-                   help="(not yet ported)")
+                   help="kidnapped-robot start for --localize: certified "
+                        "global relocalization of the first scan fixes the "
+                        "initial pose, and the particles seed as a cloud "
+                        "around the fix")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
     return p
 
 
-def _unported(args) -> list[str]:
-    return [flag for flag, on in (
-        ("--localize", args.localize is not None),
-        ("--global_init", args.global_init),
-        ("--relocalize_on_loss", args.relocalize_on_loss)) if on]
+def _run_localize(args, cfg, counts, gyro, points, masks, dev):
+    """Localization-only serving: stream PF steps against a saved map."""
+    import numpy as np
+    import torch
+
+    from .models.odometry import v_from_encoder
+    from .models.particle_filter import PFConfig, init_pf_state, pf_step
+
+    logodds = np.load(args.localize)
+    if logodds.shape != (cfg.map.width, cfg.map.height):
+        raise SystemExit(
+            f"--localize: map {args.localize!r} has shape {logodds.shape} "
+            f"but --res/--width/--height imply "
+            f"({cfg.map.width}, {cfg.map.height}); pass the flags the map "
+            "was built with")
+    im = torch.as_tensor(logodds > 0, dtype=torch.float32, device=dev)
+
+    pf_cfg = PFConfig(n_particles=args.particles)
+    x0 = np.zeros(3, np.float32)
+    if args.x0 is not None:
+        vals = [float(v) for v in args.x0.split(",")]
+        if len(vals) != 3:
+            raise SystemExit(f"--x0 wants X,Y,YAW, got {args.x0!r}")
+        x0 = np.asarray(vals, np.float32)
+
+    init_particles = None
+    if args.global_init:
+        # kidnapped-robot start: the certified multi-resolution search fixes
+        # scan 0's pose anywhere in the map (its top candidates polished,
+        # the lowest normalized ICP error wins), then the particles seed as
+        # a cloud around the fix; a blind uniform spread would need
+        # O(map area x headings) particles to contain the true pose
+        from .models.relocalization import RelocConfig, relocalize_refined
+        reach = 0.5 * max(cfg.map.world_max_x - cfg.map.world_min_x,
+                          cfg.map.world_max_y - cfg.map.world_min_y)
+        t_r = time.time()
+        grid_res, pose_fix, icp_err = relocalize_refined(
+            torch.as_tensor(logodds, dtype=torch.float32, device=dev),
+            cfg.map, points[0], masks[0], RelocConfig(search_radius=reach),
+            n_candidates=4)
+        x0 = pose_fix.cpu().numpy().astype(np.float32)
+        print(f"global init: relocalized scan 0 to {np.round(x0, 3)} in "
+              f"{time.time() - t_r:.1f}s (grid score "
+              f"{float(grid_res.score):.0f}, certified="
+              f"{bool(grid_res.certified)}, polish err "
+              f"{float(icp_err):.2e})", file=sys.stderr)
+        # the JAX CLI's numpy stream, so both seed the same cloud
+        rng = np.random.default_rng(0)
+        cloud = x0[None, :] + np.stack(
+            [rng.normal(0, 2.0 * cfg.map.resolution, pf_cfg.n_particles),
+             rng.normal(0, 2.0 * cfg.map.resolution, pf_cfg.n_particles),
+             rng.normal(0, 0.05, pf_cfg.n_particles)], axis=-1)
+        init_particles = cloud.astype(np.float32)
+
+    v_all = v_from_encoder(counts)
+    wyaw_all = gyro[:, -1]
+    state = init_pf_state(pf_cfg, x0, init_particles=init_particles,
+                          device=dev)
+    n = int(points.shape[0])
+    track = [torch.as_tensor(x0, device=dev)]
+    t0 = time.time()
+    for t in range(1, n):
+        state, (est, neff, _) = pf_step(state, v_all[t], wyaw_all[t],
+                                        points[t], masks[t], im, cfg.map,
+                                        pf_cfg)
+        track.append(est)
+    track = torch.stack(track).cpu().numpy()
+    dt = time.time() - t0
+    neff = float(neff) if n > 1 else float(args.particles)
+    print(f"localized {n - 1} steps in {dt:.2f}s "
+          f"({(n - 1) / dt:.0f} Hz incl. host dispatch, "
+          f"{args.particles} particles); final pose "
+          f"{np.round(track[-1], 3)} (Neff {neff:.0f})", file=sys.stderr)
+    if args.poses_path:
+        np.save(args.poses_path, track)
+        print(f"pose track -> {args.poses_path}", file=sys.stderr)
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    unported = _unported(args)
-    if unported:
-        parser.error(f"not yet ported: {', '.join(unported)}")
+    args = build_parser().parse_args(argv)
+
+    if args.localize:
+        # fail fast on flags that only make sense for the SLAM stream:
+        # ignoring them would misrepresent what ran
+        for flag, name in ((args.resume, "--resume"),
+                           (args.checkpoint, "--checkpoint"),
+                           (args.refine_every, "--refine_every"),
+                           (args.relocalize_on_loss, "--relocalize_on_loss")):
+            if flag:
+                raise SystemExit(f"--localize is localization-only; "
+                                 f"{name} applies to the SLAM stream")
+        if not os.path.exists(args.localize):
+            raise SystemExit(f"--localize: map {args.localize!r} "
+                             "does not exist")
 
     if args.resume:
         # a missing checkpoint under --resume must not fall through to a
@@ -137,6 +234,9 @@ def main(argv=None) -> int:
             cfg.pose_graph, loop_proposer=proposer,
             robust_loss=args.robust_loss),
         icp=dataclasses.replace(cfg.icp, metric=args.icp_metric))
+    if args.relocalize_on_loss:
+        cfg = dataclasses.replace(cfg, online=dataclasses.replace(
+            cfg.online, loss_rms_thresh=args.loss_rms))
     if args.synthetic:
         data = io.synthetic_dataset(n_steps=args.synthetic, seed=0)
     else:
@@ -164,6 +264,11 @@ def main(argv=None) -> int:
     rmax = float(np.asarray(data["lidar"].get("range_max", 30.0)))
     points, masks = scan_ops.scans_to_points(ranges, rmin, rmax, cfg.lidar)
     n = int(points.shape[0])
+
+    if args.localize:
+        _run_localize(args, cfg, counts, gyro, points, masks, dev)
+        return 0
+
     K = online.default_ray_cells(cfg, rmax)
 
     start = 1
@@ -199,6 +304,19 @@ def main(argv=None) -> int:
     for t in range(start, n):
         st = online.online_step(st, counts[t], gyro[t], points[t], masks[t],
                                 cfg, K=K)
+        if args.relocalize_on_loss and float(st.match_rms) > args.loss_rms:
+            print(f"step {t}: tracking LOST (match RMS "
+                  f"{float(st.match_rms):.2f} m > {args.loss_rms}); "
+                  "relocalizing against the causal map...",
+                  file=sys.stderr)
+            st, grid_res, icp_err = online.relocalize_and_reseed(st, cfg,
+                                                                 K=K)
+            print(f"step {t}: relocalized to "
+                  f"{np.round(st.pose.cpu().numpy(), 3)} "
+                  f"(grid score {float(grid_res.score):.0f}, certified="
+                  f"{bool(grid_res.certified)}, polish err "
+                  f"{float(icp_err):.2e}); stream re-seeded",
+                  file=sys.stderr)
         track.append(st.pose.cpu().numpy())
         if args.refine_every and t % args.refine_every == 0:
             if args.refine_loops == "none":

@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 from ..config import LidarConfig
+from ..utils.precision import in_float64
 
 
 def scan_angles(cfg: LidarConfig, n_rays: int | None = None,
@@ -36,10 +37,18 @@ def scans_to_points(
     Valid rays have range_min <= r <= range_max; points are polar ->
     Cartesian in the lidar frame plus the lidar -> robot translation p_rl
     (R = I). Invalid rays keep the well-defined value p_rl.
+
+    The angles and their cos and sin are computed on the host, the cos and
+    sin rounded once from float64 (utils/precision.in_float64), and moved
+    to the ranges' device: the card's float32 linspace, cos and sin can
+    round a last bit apart from the CPU's, and a last bit of a point moves
+    a ray endpoint across a cell boundary now and then.
     """
-    angles = scan_angles(cfg, ranges.shape[-1], ranges.dtype, ranges.device)
+    angles = scan_angles(cfg, ranges.shape[-1], ranges.dtype)
+    c, s = (in_float64(f, angles).to(ranges.device)
+            for f in (torch.cos, torch.sin))
     mask = (ranges >= range_min) & (ranges <= range_max)
     safe = torch.where(mask, ranges, torch.zeros_like(ranges))
-    x = safe * torch.cos(angles)[None, :] + cfg.p_rl[0]
-    y = safe * torch.sin(angles)[None, :] + cfg.p_rl[1]
+    x = safe * c[None, :] + cfg.p_rl[0]
+    y = safe * s[None, :] + cfg.p_rl[1]
     return torch.stack([x, y], dim=-1), mask

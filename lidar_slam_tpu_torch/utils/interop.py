@@ -58,3 +58,25 @@ def to_numpy(obj):
     if isinstance(obj, (np.ndarray, np.generic) + _SCALARS):
         return obj
     raise TypeError(f"to_numpy: unsupported type {type(obj).__name__}")
+
+
+def carry_pf_state(state, generator: torch.Generator, device="cpu"):
+    """The JAX package's PFState or PFSlamState as the port's, on `device`.
+
+    Every array field is handed over through numpy (np.asarray); the JAX
+    PRNG key, which no torch generator continues, is replaced by
+    `generator` (on `device`). A state with a `logodds` field becomes a
+    PFSlamState, else a PFState. Lets two runs, one per package, start
+    from one state."""
+    from ..models.particle_filter import PFState
+    from ..models.pf_slam import PFSlamState
+
+    if generator.device.type != torch.device(device).type:
+        raise ValueError(f"generator is on {generator.device}, the state "
+                         f"goes to {device}")
+    fields = state._asdict()
+    arrays = {k: from_numpy(np.asarray(v), device)
+              for k, v in fields.items() if k != "key"}
+    if "logodds" in fields:
+        return PFSlamState(generator=generator, **arrays)
+    return PFState(generator=generator, **arrays)

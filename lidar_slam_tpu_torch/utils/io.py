@@ -390,6 +390,43 @@ def synthetic_outback_dataset(
     }
 
 
+def _se2_T(pose: np.ndarray) -> np.ndarray:
+    c, s = np.cos(pose[2]), np.sin(pose[2])
+    return np.array([[c, -s, pose[0]], [s, c, pose[1]], [0, 0, 1]])
+
+
+def kidnap_log(n: int = 400, t_kidnap: int = 300, t_target: int = 70,
+               n_rays: int = 541, seed: int = 0):
+    """The kidnapped-robot log of the JAX package's online tests
+    (tests/test_online.py::_kidnap_log): a steady arc whose robot is
+    teleported at step t_kidnap back to its step-t_target pose, while the
+    encoders and gyro keep reporting the continuous motion; the scans
+    before and after the jump are cast in one room. Returns (counts (n, 4),
+    gyro (n, 3), ranges (n, n_rays), ground truth (n, 3))."""
+    rng = np.random.default_rng(seed)
+    freq = 40.0
+    dt = 1.0 / freq
+    v = np.full(n, 0.8)
+    w = np.full(n, 0.25)
+    theta = np.cumsum(w * dt)
+    gt = np.stack([np.cumsum(v * dt * np.cos(theta)),
+                   np.cumsum(v * dt * np.sin(theta)), theta], axis=1)
+    T_off = _se2_T(gt[t_target]) @ np.linalg.inv(_se2_T(gt[t_kidnap]))
+    gt2 = gt.copy()
+    for i in range(t_kidnap, n):
+        T = T_off @ _se2_T(gt[i])
+        gt2[i] = [T[0, 2], T[1, 2], np.arctan2(T[1, 0], T[0, 0])]
+    angles = np.linspace(np.radians(-135.0), np.radians(135.0), n_rays)
+    ranges_all = _raycast_room(np.concatenate([gt, gt2]), angles, 30.0, rng)
+    ranges = np.where(np.arange(n)[:, None] < t_kidnap,
+                      ranges_all[:n], ranges_all[n:])
+    counts = np.stack([v / (0.0022 * freq)] * 4, axis=1)
+    counts += rng.normal(0, 0.05, counts.shape)
+    gyro = np.zeros((n, 3))
+    gyro[:, 2] = w + rng.normal(0, 2e-3, n)
+    return counts, gyro, ranges, gt2
+
+
 def _raycast_room(poses: np.ndarray, angles: np.ndarray, range_max: float,
                   rng: np.random.Generator) -> np.ndarray:
     """Analytic ray distances against a rectangular room plus circular

@@ -37,6 +37,7 @@ from lidar_slam_tpu_torch.online_slam import main as cli_main
 from lidar_slam_tpu_torch.ops import scan as tscan
 from lidar_slam_tpu_torch.utils import export as texport
 from lidar_slam_tpu_torch.utils import interop
+from lidar_slam_tpu_torch.utils import io as tio
 from lidar_slam_tpu_torch.utils import png as tpng
 
 torch.set_num_threads(1)
@@ -326,13 +327,83 @@ def test_cli_matches_jax_stream(tmp_path):
     assert "stream exhausted" in out.stderr
 
 
-@pytest.mark.parametrize("flags", [
-    ["--localize", "map.npy"], ["--global_init"], ["--relocalize_on_loss"]])
-def test_cli_refuses_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli_main(["--synthetic", "10", "--device", "cpu"] + flags)
-    assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+LOC_FLAGS = ["--synthetic", "40", "--res", "0.1", "--width", "30",
+             "--height", "30", "--particles", "64", "--poses_path",
+             "track.npy", "--device", "cpu"]
+
+
+def _save_gt_map(n, path):
+    """The CLI's --synthetic n log (seed 0, 1,081 rays) painted at ground
+    truth on its 0.1 m, 30 x 30 m map, saved as a --save_logodds .npy;
+    returns the ground truth."""
+    d = jio.synthetic_dataset(n_steps=n, seed=0)
+    pts, masks = tscan.scans_to_points(
+        torch.as_tensor(d["lidar"]["ranges"], dtype=torch.float32),
+        float(d["lidar"]["range_min"]), float(d["lidar"]["range_max"]),
+        TCFG.lidar)
+    m = tc.MapConfig.from_cli(0.1, 30, 30)
+    gt = np.asarray(d["ground_truth"], np.float32)
+    lo = tocc.build_logodds(torch.as_tensor(gt), pts[..., :2], masks, m,
+                            tocc.max_ray_cells(m, 30.0))
+    np.save(path, lo.numpy())
+    return gt
+
+
+@pytest.mark.parametrize("mode", ["localize", "global_init",
+                                  "relocalize_on_loss"])
+def test_cli_runs_localize_and_relocalize_flags(mode, tmp_path, monkeypatch,
+                                               capsys):
+    """The flags the online CLI refused until this slice now run, with the
+    JAX CLI's behaviour: --localize streams the particle filter against a
+    saved map from --x0 (track within 5 cm of ground truth on average);
+    --global_init first relocalizes scan 0 anywhere in the map (within
+    3 cm, the track then within 10 cm on average); and
+    --relocalize_on_loss recovers a kidnapped robot (a 160-step copy of
+    tests/test_online.py's kidnap log fed as the --synthetic stream): the
+    loss gate fires at the kidnap step only and the track lands back on
+    the ground truth."""
+    monkeypatch.chdir(tmp_path)
+    if mode == "relocalize_on_loss":
+        counts, gyro, ranges, gt = tio.kidnap_log(160, 120, 30)
+        monkeypatch.setattr(tio, "synthetic_dataset", lambda **kw: {
+            "encoder": {"counts": counts},
+            "imu": {"angular_velocity": gyro},
+            "lidar": {"ranges": ranges, "range_min": 0.1,
+                      "range_max": 30.0}})
+        assert cli_main(["--synthetic", "160", "--res", "0.1", "--width",
+                         "30", "--height", "30", "--relocalize_on_loss",
+                         "--icp_metric", "point_to_line", "--poses_path",
+                         "track.npy", "--map_path", "m.png",
+                         "--device", "cpu"]) == 0
+        err = capsys.readouterr().err
+        assert err.count("tracking LOST") == 1
+        assert "step 120: tracking LOST" in err
+        assert "step 120: relocalized to" in err
+        track = np.load("track.npy")
+        assert track.shape == (160, 3)
+        assert np.hypot(*(track[120, :2] - gt[120, :2])) < 0.05
+        assert np.hypot(*(track[-1, :2] - gt[-1, :2])) < 0.15
+        return
+    gt = _save_gt_map(40, "map.npy")
+    argv = ["--localize", "map.npy"] + LOC_FLAGS
+    if mode == "localize":
+        argv += ["--x0", ",".join(str(float(v)) for v in gt[0])]
+    else:
+        argv += ["--global_init"]
+    assert cli_main(argv) == 0
+    err = capsys.readouterr().err
+    assert "localized 39 steps" in err
+    assert ("global init: relocalized scan 0 to" in err) == (
+        mode == "global_init")
+    track = np.load("track.npy")
+    assert track.shape == (40, 3) and np.isfinite(track).all()
+    pos_err = np.linalg.norm(track[:, :2] - gt[:, :2], axis=1)
+    if mode == "localize":
+        assert pos_err.mean() < 0.05, pos_err.mean()
+    else:
+        # the fix lands within a few cm; the particles then start as a
+        # cloud of 2 cells around it and settle (measured mean 0.055 m)
+        assert pos_err[0] < 0.03 and pos_err.mean() < 0.1, pos_err
 
 
 @pytest.mark.parametrize("flags", [
@@ -396,12 +467,35 @@ def test_cli_runs_lifted_flags(flags, tmp_path, monkeypatch):
     (["--resume", "--checkpoint", "missing.npz"],
      "--resume: checkpoint 'missing.npz' does not exist"),
     (["--window", "0"], "--window must be positive, got 0"),
+    (["--localize", "map.npy", "--resume"],
+     "--localize is localization-only; --resume applies"),
+    (["--localize", "map.npy", "--checkpoint", "c.npz"],
+     "--localize is localization-only; --checkpoint applies"),
+    (["--localize", "map.npy", "--refine_every", "5"],
+     "--localize is localization-only; --refine_every applies"),
+    (["--localize", "map.npy", "--relocalize_on_loss"],
+     "--localize is localization-only; --relocalize_on_loss applies"),
+    (["--localize", "missing.npy"],
+     "--localize: map 'missing.npy' does not exist"),
+    (["--localize", "small.npy"], "--localize: map 'small.npy' has shape"),
+    (["--localize", "map.npy", "--x0", "1,2"], "--x0 wants X,Y,YAW"),
 ])
 def test_cli_validation_messages(argv, msg, tmp_path, monkeypatch):
+    """Each refusal exits with the JAX online CLI's message."""
     monkeypatch.chdir(tmp_path)
+    np.save("map.npy", np.zeros((81, 81), np.float32))
+    np.save("small.npy", np.zeros((5, 5), np.float32))
+    flags = ["--synthetic", "5", "--res", "0.2", "--width", "16",
+             "--height", "16"]
     with pytest.raises(SystemExit) as e:
-        cli_main(["--synthetic", "5", "--device", "cpu"] + argv)
+        cli_main(flags + ["--device", "cpu"] + argv)
     assert str(e.value.code).startswith(msg)
+    if argv[0] == "--localize":
+        import online_slam as jax_online
+
+        with pytest.raises(SystemExit) as j:
+            jax_online.main(flags + argv)
+        assert str(e.value.code) == str(j.value.code)
 
 
 def test_cuda_device_raises_without_cuda():
