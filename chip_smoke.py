@@ -87,9 +87,15 @@ first failure and catches nothing):
      finite, and its map against the plain scatter on CPU copies of the
      kept rays, bit-exact;
  13. the texture of 2,407 RGB-D frames of 480 x 640 (bench.py's
-     synthetic frames and poses) on the 1201 x 1201 map, projector
-     "device": seconds a frame; the cells and colors painted by the first
-     64 frames on the card equal to the CPU's, bit for bit;
+     synthetic frames and poses) on the 1201 x 1201 map with each
+     projector, "device", "native" (the C++ host projector, built with g++
+     from lidar_slam_tpu_torch/csrc_host, its paint ops folded on the
+     card) and "auto" (reporting native): seconds a frame of each; the
+     device engine's cells and colors of the first 64 frames on the card
+     equal to the CPU's, bit for bit; auto's texture equal to native's,
+     and native's apart from the device engine's in exactly the 46
+     boundary cells of the CPU record (tests/torch_texture_engines.py);
+     whether the host built the native PNG decoder;
  14. revisit loop closures on the card (revisit_phase): (a) the two-lap
      revisit world (4,956 x 1,081) with the descriptor proposer and the
      Cauchy kernel against the fixed proposer (a revisit kept, ATE below
@@ -120,7 +126,18 @@ first failure and catches nothing):
      the CPU (the loss gate at step 300 only, recovered within 5 cm, card
      vs CPU within 1e-3); (e) a 60 x 181 log, 64 particles, card vs CPU
      on one noise, each computing its points (points equal, tracks and
-     PF-SLAM maps within 1e-4, resample flags and hit maps equal).
+     PF-SLAM maps within 1e-4, resample flags and hit maps equal);
+ 16. the 3-D ICP warm-up (warmup_phase): (a) the 5,000-point synthetic
+     model against 4 target clouds, 24 yaw seeds in batches of 8, the NN
+     kernel at D = 3 (seconds, iterations a seed, best error, K4
+     launches; the best transform against the applied one, or against
+     the CPU's where the reference's stopping rule misses it in the JAX
+     package too; host syncs of one ICP iteration); (b) an 800-point
+     model's sweeps card vs CPU (the same best seed and iteration counts);
+     (c) nn_argmin on the first iteration's 8 x 5,000 x ~3,500 inputs held
+     to nn_argmin_rounded and timed; (d) a 25,000-point sweep through
+     voxel_downsample; (e) the warm-up CLI on the card and the CPU, the
+     same "Best errors".
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2 and K4, and
@@ -131,7 +148,8 @@ the plain version's and the library call's times, and its bound (the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
 every kernel with its profiler device time; nn_argmin also on [15] (c)'s
-polish inputs; P1-P6 and nn_argmin at B = 1
+polish inputs and on [16] (c)'s warm-up inputs, with [16]'s launches;
+P1-P6 and nn_argmin at B = 1
 with their host split; P9 also with the probe tool's slopes), and
 {"ok": true, "device": ...}.
 """
@@ -264,6 +282,10 @@ def cpu_events(fn, reps: int) -> dict:
     return {ev.key: ev.self_cpu_time_total / reps
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total}
+
+
+def fmt(v, digits=4) -> str:
+    return "not measured" if v is None else f"{v:.{digits}f} ms"
 
 
 def nn_check(s, t, tm, reps: int):
@@ -588,6 +610,11 @@ def probe_phase(dev) -> list:
 STAT_BAND_RTOL = 1e-6  # [12]: pooled float32 sums, card against CPU
 DBSCAN_CHECK_SCANS = 256  # [12]: scans whose DBSCAN masks the CPU redoes
 N_RGB_FRAMES, TEX_CHECK_FRAMES = 2407, 64  # [13]: dataset-20's RGB track
+# [13]: texture cells where the native engine (float64 chain) and the
+# device engine (float32) part over the N_RGB_FRAMES frames, each reached
+# by a pixel within 1e-4 cells or rows of a boundary: the CPU record of
+# tests/torch_texture_engines.py
+TEX_ENGINE_CELLS_APART = 46
 
 
 def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
@@ -678,56 +705,95 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     return launches
 
 
-def texture_phase(dev, cfg) -> None:
-    """[13]: the texture of N_RGB_FRAMES frames of 480 x 640, made as
-    bench.py makes them (16 base frames from seed 30 with a per-batch
-    disparity offset, poses N(0, 5)), painted on the 1201 x 1201 map with
-    projector="device": seconds a frame of a timed run after one of
-    TEX_CHECK_FRAMES frames; gate: the card's painted cells and colors over
-    those first frames equal to the same function's on the CPU, bit for
-    bit."""
-    from lidar_slam_tpu_torch.models import texture
-
+def texture_frames():
+    """(poses (N_RGB_FRAMES, 3) float32, loader): [13]'s RGB-D frames of
+    480 x 640, made as bench.py makes them: 16 base frames from seed 30
+    with a per-batch disparity offset, poses N(0, 5)."""
     H, W = 480, 640
     rng = np.random.default_rng(30)
     base_disp = rng.integers(300, 800, (16, H, W)).astype(np.uint16)
     base_rgb = rng.integers(0, 255, (16, H, W, 3)).astype(np.uint8)
     poses = np.asarray(rng.normal(0, 5.0, (N_RGB_FRAMES, 3)), np.float32)
-    grid = np.zeros((cfg.map.width, cfg.map.height), np.uint8)
 
     def loader(ids):
         off = np.uint16(int(ids[0]) % 97)
         return base_disp[:len(ids)] + off, base_rgb[:len(ids)]
 
+    return poses, loader
+
+
+def texture_phase(dev, cfg) -> None:
+    """[13]: the texture of texture_frames()'s N_RGB_FRAMES frames painted
+    on the 1201 x 1201 map by each engine: seconds a frame of a timed run
+    with projector "device" (after one of TEX_CHECK_FRAMES frames), then
+    "native" (the host projector's paint ops folded on the card) and
+    "auto" (which must report native for the raw uint16 frames). Gates:
+    the card's painted cells and colors over the first TEX_CHECK_FRAMES
+    frames equal to the device engine's on the CPU, bit for bit; auto's
+    texture equal to native's; the native texture apart from the device
+    one in exactly TEX_ENGINE_CELLS_APART cells (the CPU record's count of
+    boundary pixels' cells). Prints whether the host built the native PNG
+    decoder and which decoder disk_frame_loader takes."""
+    from lidar_slam_tpu_torch.models import texture
+    from lidar_slam_tpu_torch.utils import native
+
+    poses, loader = texture_frames()
+    H, W = loader(np.arange(1))[0].shape[1:]
+    grid = np.zeros((cfg.map.width, cfg.map.height), np.uint8)
+
     first = np.arange(TEX_CHECK_FRAMES)
-    w_k, c_k = texture.paint_texture(poses, first, loader, cfg.map,
-                                     cfg.camera, device=dev)
+    w_k, c_k, _ = texture.paint_texture(poses, first, loader, cfg.map,
+                                        cfg.camera, device=dev)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    w_c, c_c = texture.paint_texture(poses, first, loader, cfg.map,
-                                     cfg.camera, device="cpu")
+    w_c, c_c, _ = texture.paint_texture(poses, first, loader, cfg.map,
+                                        cfg.camera, device="cpu")
     cpu_s = time.perf_counter() - t1
     same = torch.equal(w_k.cpu(), w_c) and torch.equal(c_k.cpu(), c_c)
     painted = int((w_c >= 0).sum())
     t0 = time.perf_counter()
-    tex = texture.generate_texture_map(poses, np.arange(N_RGB_FRAMES),
-                                       np.arange(N_RGB_FRAMES), grid, loader,
-                                       cfg.map, cfg.camera, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    finite = bool(torch.isfinite(tex).all())
-    cells = int((tex != 0).any(-1).sum())
+    native.host_library()
+    png = native.png_available()
+    build_s = time.perf_counter() - t0
+    tex, wall = {}, {}
+    for engine in ("device", "native", "auto"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tex[engine], got = texture.generate_texture_map(
+            poses, np.arange(N_RGB_FRAMES), np.arange(N_RGB_FRAMES), grid,
+            loader, cfg.map, cfg.camera, projector=engine, device=dev)
+        torch.cuda.synchronize()
+        wall[engine] = time.perf_counter() - t0
+        if got != ("device" if engine == "device" else "native"):
+            fail(f"[13] projector {engine!r} painted with the {got} engine")
+    t_dev = tex["device"]
+    finite = bool(torch.isfinite(t_dev).all())
+    cells = int((t_dev != 0).any(-1).sum())
+    apart = int((t_dev != tex["native"]).any(-1).sum())
+    auto_same = torch.equal(tex["auto"], tex["native"])
     print(f"[13] texture, {N_RGB_FRAMES} frames of {H} x {W} on "
-          f"{cfg.map.width} x {cfg.map.height} cells (projector device): "
-          f"{wall:.3f} s, {wall / N_RGB_FRAMES * 1e3:.3f} ms a frame; "
-          f"{cells} cells painted; first {TEX_CHECK_FRAMES} frames card vs "
-          f"CPU: cells and colors equal {same}, {painted} cells painted "
-          f"(CPU {cpu_s:.2f} s)", flush=True)
+          f"{cfg.map.width} x {cfg.map.height} cells: " + "; ".join(
+              f"projector {e} {wall[e]:.3f} s, "
+              f"{wall[e] / N_RGB_FRAMES * 1e3:.3f} ms a frame"
+              for e in wall) + f"; {cells} cells painted; first "
+          f"{TEX_CHECK_FRAMES} frames card vs CPU (device engine): cells and "
+          f"colors equal {same}, {painted} cells painted (CPU {cpu_s:.2f} "
+          f"s)", flush=True)
+    print(f"[13] native engine: host libraries built in {build_s:.2f} s; "
+          f"libpng on this host {png} (disk_frame_loader decodes with "
+          f"{texture.disk_frame_loader(20, np.arange(1)).engine}); auto "
+          f"reported native, its texture equal to native's {auto_same}; "
+          f"cells apart from the device engine's {apart} (the CPU record's "
+          f"{TEX_ENGINE_CELLS_APART}, tests/torch_texture_engines.py)",
+          flush=True)
     if not same or painted < 1000:
         fail("the texture painted on the card differs from the CPU's")
-    if not finite or tex.shape != (cfg.map.width, cfg.map.height, 3) \
+    if not finite or t_dev.shape != (cfg.map.width, cfg.map.height, 3) \
             or cells < painted:
         fail("the texture map is malformed")
+    if not auto_same or apart != TEX_ENGINE_CELLS_APART:
+        fail("[13] the native engine's texture differs from the device "
+             "engine's beyond the recorded boundary cells")
 
 
 REVISIT_STEPS, REVERSE_LAP = 4956, 2468  # [14]: dataset-20 length
@@ -1303,6 +1369,212 @@ def pf_reloc_phase(dev, cfg) -> tuple:
     return launches, nn_r
 
 
+WARMUP_SEEDS, WARMUP_BATCH = 24, 8  # [16]: warmup_icp.py --synthetic
+WARMUP_CLOUDS = 4  # [16] (a): synthetic_pc(model, i) for i < 4
+# [16] (a): the clouds where the reference's stopping rule (|delta
+# normalized error| < 1e-4) ends the sweep more than 0.05 from the applied
+# rotation, in the JAX package too (tests/test_torch_warmup.py::
+# test_warmup_stopping_rule_misses_like_jax; 0.0917 in the port on the
+# CPU): held to the CPU's sweep in place of the ground truth
+WARMUP_STOP_MISSES = (1,)
+WARMUP_ROT_TOL = 0.05  # tests/test_correlation_voxel_warmup.py:129
+# [16] (a): the CPU sweeps' translations were within 0.00096 m of the
+# applied one (5,000 points, clouds 0-3)
+WARMUP_TRANS_TOL = 0.002
+# [16] (b), (d): card against CPU; the CPU parity tests found every seed's
+# iteration count equal to JAX's and the transforms within 5.4e-7
+WARMUP_CARD_CPU_TOL = 1e-5
+WARMUP_SMALL = 800  # [16] (b): points of the card-vs-CPU model
+
+
+def icp_syncs(src, tgt, T0, planar: bool) -> int:
+    """Host synchronizations of one ICP iteration (the kernel, the fit and
+    the error) on the card, counted by torch's sync debug mode."""
+    import warnings
+
+    from lidar_slam_tpu_torch.ops import icp as icp_ops
+
+    B = src.shape[0]
+    ones = [torch.ones(a.shape[:2], dtype=torch.bool, device=a.device)
+            for a in (src, tgt)]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            icp_ops.icp_iteration(src, tgt, *ones, T0[:B], True,
+                                  planar=planar)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def warmup_phase(dev) -> dict:
+    """[16]: the ICP warm-up on the card (models/warmup.py: 24 yaw seeds of
+    non-planar 3-D ICP in batches of 8, the NN kernel at D = 3). (a) the
+    synthetic 5,000-point model against synthetic_pc(model, i), i < 4, as
+    `warmup_icp.py --synthetic` runs it, K4's counter reset just before
+    each sweep: seconds, iterations a seed, best error, K4 launches; the
+    best transform within WARMUP_ROT_TOL (rotation) and WARMUP_TRANS_TOL
+    (translation) of the applied one, or for WARMUP_STOP_MISSES within
+    WARMUP_CARD_CPU_TOL of the CPU's sweep; the host syncs of one
+    non-planar and one planar ICP iteration. (b) an 800-point model's
+    sweep on the card and the CPU: the same best seed, every seed's
+    iteration count equal, the best transform within WARMUP_CARD_CPU_TOL.
+    (c) K4 on (a)'s first iteration of the first seed batch (8 x 5,000 x
+    ~3,500, D = 3, past one 2,048-target stage): nn_check. (d)
+    test_warmup_downsample_trigger's 25,000-point clouds through
+    voxel_downsample on the card: the JAX test's translation gate and the
+    CPU's transform within WARMUP_CARD_CPU_TOL. (e) `python -m
+    lidar_slam_tpu_torch.warmup_icp --synthetic --num_pc 4` on the card
+    and with --device cpu: the same "Best errors" block. Returns the
+    launches and nn_check's numbers."""
+    from lidar_slam_tpu_torch.kernels.nn import nn_argmin
+    from lidar_slam_tpu_torch.models import warmup
+    from lidar_slam_tpu_torch.ops import icp as icp_ops
+
+    model = warmup.synthetic_model()
+    launches, first = 0, None
+    for i in range(WARMUP_CLOUDS):
+        tgt = warmup.synthetic_pc(model, i)
+        G = warmup.synthetic_pose(model, i)
+        torch.cuda.synchronize()
+        nn_argmin.launches = 0
+        t0 = time.perf_counter()
+        T, err, errs, iters = warmup.best_icp_alignment(
+            model, tgt, n_seeds=WARMUP_SEEDS, seed_batch=WARMUP_BATCH,
+            device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_k4 = nn_argmin.launches
+        launches += n_k4
+        rot = float(np.abs(T[:3, :3] - G[:3, :3]).max())
+        trans = float(np.abs(T[:3, 3] - G[:3, 3]).max())
+        print(f"[16] (a) cloud {i}: {model.shape[0]} x {tgt.shape[0]} "
+              f"points, {WARMUP_SEEDS} seeds in batches of {WARMUP_BATCH}: "
+              f"{secs:.3f} s; ICP iterations a seed {iters.tolist()}; best "
+              f"seed {int(np.argmin(errs))}, error {err:.6e}; K4 launches "
+              f"{n_k4}; off the applied transform: rotation {rot:.4f}, "
+              f"translation {trans:.5f} m", flush=True)
+        if n_k4 == 0:
+            fail(f"[16] (a) cloud {i}: nn_argmin was not launched")
+        if not np.isfinite(T).all() or trans > WARMUP_TRANS_TOL:
+            fail(f"[16] (a) cloud {i}: translation {trans} off the applied "
+                 f"one (gate {WARMUP_TRANS_TOL})")
+        if i in WARMUP_STOP_MISSES:
+            T_c, _, errs_c, _ = warmup.best_icp_alignment(
+                model, tgt, n_seeds=WARMUP_SEEDS, seed_batch=WARMUP_BATCH,
+                device="cpu")
+            gap = float(np.abs(T - T_c).max())
+            print(f"[16] (a) cloud {i} (the reference's stop misses it in "
+                  f"the JAX package too): best seed card "
+                  f"{int(np.argmin(errs))}, CPU {int(np.argmin(errs_c))}; "
+                  f"transform card vs CPU {gap:.3e}", flush=True)
+            if gap > WARMUP_CARD_CPU_TOL:
+                fail(f"[16] (a) cloud {i}: the card's transform differs "
+                     f"from the CPU's")
+        elif rot > WARMUP_ROT_TOL:
+            fail(f"[16] (a) cloud {i}: rotation {rot} off the applied one")
+        if first is None:
+            first = tgt
+    # the fit's host syncs: torch.linalg.svd on CUDA tensors checks its
+    # convergence on the host
+    s3 = torch.as_tensor(model, dtype=torch.float32, device=dev)
+    t3 = torch.as_tensor(first, dtype=torch.float32, device=dev)
+    seeds = torch.as_tensor(warmup.yaw_seed_transforms(
+        model, first, WARMUP_SEEDS)[:WARMUP_BATCH], dtype=torch.float32,
+        device=dev)
+    src_b = s3.expand(WARMUP_BATCH, -1, -1).contiguous()
+    tgt_b = t3.expand(WARMUP_BATCH, -1, -1).contiguous()
+    syncs = {p: icp_syncs(src_b, tgt_b, seeds, p) for p in (False, True)}
+    print(f"[16] (a) host syncs of one ICP iteration of {WARMUP_BATCH} "
+          f"seeds (torch.cuda.set_sync_debug_mode): non-planar (3-D SVD "
+          f"Kabsch) {syncs[False]}, planar (closed form) {syncs[True]}",
+          flush=True)
+
+    # (b) card against CPU on a smaller model
+    small = warmup.synthetic_model(WARMUP_SMALL)
+    for i in range(WARMUP_CLOUDS):
+        tgt = warmup.synthetic_pc(small, i)
+        res = [warmup.best_icp_alignment(small, tgt, device=d)
+               for d in (dev, "cpu")]
+        (T_g, _, e_g, it_g), (T_c, _, e_c, it_c) = res
+        gap = float(np.abs(T_g - T_c).max())
+        n_it = int((it_g != it_c).sum())
+        print(f"[16] (b) {WARMUP_SMALL}-point model, cloud {i}: best seed "
+              f"card {int(np.argmin(e_g))}, CPU {int(np.argmin(e_c))}; "
+              f"seeds with another iteration count {n_it}; best transform "
+              f"card vs CPU {gap:.3e}; errors "
+              f"{float(np.abs(e_g - e_c).max()):.3e} apart", flush=True)
+        if (int(np.argmin(e_g)) != int(np.argmin(e_c)) or n_it
+                or gap > WARMUP_CARD_CPU_TOL):
+            fail(f"[16] (b) cloud {i}: the card's sweep differs from the "
+                 f"CPU's")
+
+    # (c) K4 on the first iteration of the first seed batch
+    src_t = icp_ops._transform(src_b, seeds)
+    tm = torch.ones(tgt_b.shape[:2], dtype=torch.bool, device=dev)
+    nn_w = nn_check(src_t, tgt_b, tm, 20)
+    dev_ms = device_ms(lambda: nn_argmin(src_t, tgt_b, tm), 20,
+                       "nn_argmin_kernel")
+    print(f"[16] (c) nn_argmin on the warm-up's first iteration, "
+          f"{' x '.join(map(str, (*src_t.shape[:2], tgt_b.shape[1])))}, "
+          f"D = 3: {NN_EXACT}; vs plain: index flips {nn_w[0]:.5f}, max "
+          f"chosen-distance gap {nn_w[1]:.3e}; kernel {nn_w[2]:.4f} ms "
+          f"(device {fmt(dev_ms)}), plain {nn_w[3]:.4f} ms, torch.cdist + "
+          f"argmin {nn_w[4]:.4f} ms; bound {nn_w[5][0]:.5f} ms "
+          f"({nn_w[5][1]})", flush=True)
+
+    # (d) the voxel-downsampled sweep
+    rng = np.random.default_rng(4)
+    src = rng.normal(0, 0.1, (25000, 3))
+    tgt = src + np.array([0.05, 0.0, 0.0])
+    kw = dict(n_seeds=2, downsample_above=20000, voxel_size=0.05,
+              seed_batch=2)
+    nn_argmin.launches = 0
+    T_g, e_g, _, _ = warmup.best_icp_alignment(src, tgt, device=dev, **kw)
+    n_k4 = nn_argmin.launches
+    T_c, _, _, _ = warmup.best_icp_alignment(src, tgt, device="cpu", **kw)
+    kept = warmup.voxel_downsample(src, 0.05).shape[0]
+    off = float(np.abs(T_g[:3, 3] - [0.05, 0.0, 0.0]).max())
+    gap = float(np.abs(T_g - T_c).max())
+    print(f"[16] (d) 25000-point clouds, voxel_downsample at 0.05 m to "
+          f"{kept} points: error {e_g:.6e}, translation {off:.5f} m off "
+          f"[0.05, 0, 0] (gate 0.02); card vs CPU {gap:.3e}; K4 launches "
+          f"{n_k4}", flush=True)
+    if not np.isfinite(e_g) or off > 0.02 or gap > WARMUP_CARD_CPU_TOL \
+            or n_k4 == 0:
+        fail("[16] (d) the downsampled sweep failed")
+
+    # (e) the CLI on the card and on the CPU
+    blocks = {}
+    for d in (dev.type, "cpu"):
+        cwd = os.path.join(ROOT, "build", "warmup_cli", d)
+        os.makedirs(cwd, exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "lidar_slam_tpu_torch.warmup_icp",
+             "--synthetic", "--num_pc", str(WARMUP_CLOUDS), "--device", d],
+            capture_output=True, text=True, cwd=cwd, env=env, timeout=600)
+        if out.returncode != 0:
+            fail(f"[16] (e) warmup_icp --device {d} exited "
+                 f"{out.returncode}:\n{out.stderr[-2000:]}")
+        lines = out.stdout.splitlines()
+        blocks[d] = lines[lines.index("Best errors:"):]
+        print(f"[16] (e) python -m lidar_slam_tpu_torch.warmup_icp "
+              f"--synthetic --num_pc {WARMUP_CLOUDS} --device {d}: "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{' | '.join(blocks[d])}", flush=True)
+    if blocks[dev.type] != blocks["cpu"] or len(blocks["cpu"]) != \
+            WARMUP_CLOUDS + 1:
+        fail("[16] (e) the CLI's best errors on the card differ from the "
+             "CPU's")
+    return {"launches": launches, "nn": nn_w, "device_ms": dev_ms,
+            "syncs": syncs}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1703,9 +1975,6 @@ def main() -> int:
                                          masks20[:64]), 50,
                        "nn_argmin_kernel")
 
-    def fmt(v, digits=4):
-        return "not measured" if v is None else f"{v:.{digits}f} ms"
-
     def main_build():
         raywalk_build(ends_main, masks21, cfg.map, K)
 
@@ -1847,6 +2116,8 @@ def main() -> int:
     launches_rv = revisit_phase(dev, cfg, log21, res, pts21, masks21)
     # 15. particle filters and relocalization
     launches_pf, nn_pf = pf_reloc_phase(dev, cfg)
+    # 16. the 3-D ICP warm-up
+    warm = warmup_phase(dev)
 
     print(card)
     # launches: the main paths' runs, gtsam [5] plus online [8]; the
@@ -1856,7 +2127,8 @@ def main() -> int:
          "source": "lidar_slam_tpu_torch/csrc/nn.cu",
          "replaces": "lidar_slam_tpu/ops/pallas_nn.py:64",
          "launches": launches["nn_argmin"] + launches_on["nn_argmin"],
-         "max_abs_err": max(gap, gap1, nn_pf[1]), "ms": nn_ms,
+         "max_abs_err": max(gap, gap1, nn_pf[1], warm["nn"][1]),
+         "ms": nn_ms,
          "plain_ms": nn_plain_ms, "bound_ms": nn_bound[0],
          "bound_by": nn_bound[1], "library_ms": nn_lib_ms,
          "device_ms": dev_nn, "ms_b1": nn1_ms, "plain_ms_b1": nn1_plain_ms,
@@ -1866,7 +2138,14 @@ def main() -> int:
          "launches_revisit": launches_rv["nn_argmin"],
          "launches_pf_reloc": launches_pf["nn_argmin"],
          "ms_reloc": nn_pf[2], "plain_ms_reloc": nn_pf[3],
-         "library_ms_reloc": nn_pf[4], "bound_ms_reloc": nn_pf[5][0]},
+         "library_ms_reloc": nn_pf[4], "bound_ms_reloc": nn_pf[5][0],
+         "launches_warmup": warm["launches"],
+         "max_abs_err_warmup": warm["nn"][1], "ms_warmup": warm["nn"][2],
+         "plain_ms_warmup": warm["nn"][3],
+         "library_ms_warmup": warm["nn"][4],
+         "bound_ms_warmup": warm["nn"][5][0],
+         "bound_by_warmup": warm["nn"][5][1],
+         "device_ms_warmup": warm["device_ms"]},
         # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",

@@ -14,8 +14,8 @@ saved poses and skips pose estimation and the stage artifacts.
 the log-odds PNG and, on a dataset on disk (its frames under dataRGBD/ in
 the working directory), the texture map PNG, under main.py's image paths
 (images/ or images_filtered/, suffixed _<mode>_<d>.png); the texture is
-painted on --device (main.py's "auto" engine may take its native host
-projector, which the port does not have).
+painted with main.py's "auto" engine (the native host projector for the
+raw uint16 disparity frames, folded on --device) and the engine printed.
 
 Beyond the reference, as main.py: --loop_proposer proximity|descriptor adds
 verified revisit closures (with --proximity_seed estimate and
@@ -216,12 +216,12 @@ def _generate_maps(args, cfg, result, data, encoder, device) -> None:
     if args.synthetic:
         print("(no RGBD frames for synthetic data; skipping texture)")
         return
-    tex = texture.generate_texture_map(
+    tex, engine = texture.generate_texture_map(
         result.poses, rgb_pose_idx, disp_for_rgb, result.grid_map,
         texture.disk_frame_loader(args.dataset, disp_for_rgb), cfg.map,
-        cfg.camera, device=device)
+        cfg.camera, projector="auto", device=device)
     texture.plot_texture_map(tex, texture_path)
-    print(f"Texture map saved at: {texture_path}")
+    print(f"Texture map saved at: {texture_path} ({engine} engine)")
 
 
 def _save_stage_artifacts(io, result, out: str, d: int) -> None:

@@ -1,6 +1,6 @@
-"""Batched masked planar ICP.
+"""Batched masked ICP.
 
-Counterpart of the planar path of lidar_slam_tpu/ops/icp.py, with the
+Counterpart of lidar_slam_tpu/ops/icp.py, with the
 reference's stopping semantics (modules/icp.py:163-181): the transform is
 composed BEFORE the break checks and the reported error is measured at the
 pre-update transform, so the returned T is one fit ahead of the returned
@@ -19,10 +19,16 @@ matched target points' surface lines, ops/kabsch.py). Both keep the NN
 kernel as the correspondence step; PLICP gathers the target normals by its
 indices.
 
+The fit is the closed-form planar Kabsch on z = 0 clouds (planar=True,
+the whole SLAM pipeline) or the 3-D SVD Kabsch (planar=False, the ICP
+warm-up of models/warmup.py); PLICP is planar only.
+
 The JAX package runs the loop as one lax.while_loop on device; here it is a
 Python loop that reads the batch's done flag once per iteration. The
 correspondence step is the Hopper NN kernel for CUDA tensors
-(kernels/nn.py) and its plain version for CPU tensors.
+(kernels/nn.py) and its plain version for CPU tensors; nn_chunk bounds the
+plain version's (B, N, M) distances on the CPU (ops/nn.py
+nearest_neighbors_chunked, the JAX package's nn_backend="chunked").
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.nn import nn_argmin
-from .kabsch import (fit_point_to_line_planar, kabsch_planar,
+from .kabsch import (fit_point_to_line_planar, kabsch, kabsch_planar,
                      scan_normals_planar)
+from .nn import gather_points, nearest_neighbors_chunked
 
 _INF = float("inf")
 
@@ -93,19 +100,29 @@ def _trim_mask(d2: torch.Tensor, mask: torch.Tensor,
 
 def icp_iteration(src, tgt, src_mask, tgt_mask, T_prev,
                   normalize_error: bool = False, trim_fraction: float = 1.0,
-                  metric: str = "point"):
-    """One batched planar ICP iteration on z = 0 clouds (B, P, 3).
+                  metric: str = "point", planar: bool = True,
+                  nn_chunk: int | None = None):
+    """One batched ICP iteration on (B, P, 3) clouds.
 
     Returns (T_next, correspondences, error) with the error measured at
-    T_prev. metric "point": the closed-form planar Kabsch fit (the
-    reference); "point_to_line": the PLICP fit and point-to-line error
-    over the matches whose target normal is valid. trim_fraction < 1 fits
-    and measures only the trimmed set (_trim_mask).
+    T_prev. metric "point": the Kabsch fit (the reference), closed-form in
+    the plane for z = 0 clouds (planar=True) or the 3-D SVD fit
+    (planar=False); "point_to_line" (planar only): the PLICP fit and
+    point-to-line error over the matches whose target normal is valid.
+    trim_fraction < 1 fits and measures only the trimmed set (_trim_mask).
+    nn_chunk: on CPU tensors, search the sources nn_chunk at a time (the
+    same indices); CUDA tensors always take the NN kernel.
     """
     if metric not in ("point", "point_to_line"):
         raise ValueError(f"unknown icp metric {metric!r}")
+    if metric == "point_to_line" and not planar:
+        raise ValueError("point_to_line ICP is planar only")
     src_t = _transform(src, T_prev)
-    idx, matched = nn_argmin(src_t, tgt, tgt_mask)
+    if nn_chunk and not src_t.is_cuda:
+        idx = nearest_neighbors_chunked(src_t, tgt, tgt_mask, nn_chunk)
+        matched = gather_points(tgt, idx)
+    else:
+        idx, matched = nn_argmin(src_t, tgt, tgt_mask)
     fit_mask = src_mask
     if trim_fraction < 1.0:
         d2 = torch.sum((src_t - matched) ** 2, dim=-1)
@@ -121,8 +138,9 @@ def icp_iteration(src, tgt, src_mask, tgt_mask, T_prev,
                          dim=-1) ** 2
         err = _error(src_t, matched, w_pl, normalize_error, d2=dpl2)
     else:
-        T_fit = kabsch_planar(src_t[..., :2], matched[..., :2],
-                              w=fit_mask.to(src.dtype))
+        w = fit_mask.to(src.dtype)
+        T_fit = (kabsch_planar(src_t[..., :2], matched[..., :2], w=w)
+                 if planar else kabsch(src_t, matched, w=w))
         err = _error(src_t, matched, fit_mask, normalize_error)
     return T_fit @ T_prev, idx, err
 
@@ -155,11 +173,13 @@ def initial_icp_carry(init_T: torch.Tensor, P: int,
 def _icp_body(src, tgt, src_mask, tgt_mask, c: IcpCarry, epsilon: float,
               max_iters: int, stopping_thresh: float,
               normalize_error: bool, trim_fraction: float = 1.0,
-              metric: str = "point") -> IcpCarry:
+              metric: str = "point", planar: bool = True,
+              nn_chunk: int | None = None) -> IcpCarry:
     """One iteration: live pairs advance one fit and evaluate the stopping
     rules with this iteration's error; done pairs freeze."""
     T_new, idx, err = icp_iteration(src, tgt, src_mask, tgt_mask, c.T,
-                                    normalize_error, trim_fraction, metric)
+                                    normalize_error, trim_fraction, metric,
+                                    planar, nn_chunk)
     live = ~c.done
     hit_eps = err < epsilon
     hit_iters = c.k >= max_iters
@@ -193,18 +213,21 @@ def run_icp_batch(
     normalize_error: bool = False,
     trim_fraction: float = 1.0,
     metric: str = "point",
+    planar: bool = True,
+    nn_chunk: int | None = None,
 ) -> IcpResult:
-    """Run planar ICP to convergence for a batch of pairs.
+    """Run ICP to convergence for a batch of pairs.
 
-    src/tgt (B, P, 3) z = 0 clouds, src_mask/tgt_mask (B, P) validity,
-    init_T (B, 4, 4) seeds. Defaults mirror the reference
-    (modules/icp.py:123-133); trim_fraction and metric as icp_iteration.
+    src/tgt (B, P, 3) clouds (z = 0 for planar=True), src_mask/tgt_mask
+    (B, P) validity, init_T (B, 4, 4) seeds. Defaults mirror the reference
+    (modules/icp.py:123-133); trim_fraction, metric, planar and nn_chunk
+    as icp_iteration.
     """
     c = initial_icp_carry(init_T, src.shape[1], src.dtype)
     while not bool(c.done.all()):
         c = _icp_body(src, tgt, src_mask, tgt_mask, c, epsilon, max_iters,
                       stopping_thresh, normalize_error, trim_fraction,
-                      metric)
+                      metric, planar, nn_chunk)
     return IcpResult(T=c.T, error=c.err, iters=c.k, correspondences=c.idx)
 
 
@@ -213,3 +236,29 @@ def lift_to_3d(pts: torch.Tensor) -> torch.Tensor:
     if pts.shape[-1] == 2:
         return torch.cat([pts, torch.zeros_like(pts[..., :1])], dim=-1)
     return pts
+
+
+def run_icp(pc1, pc2, init_transform=None, epsilon: float = 0.01,
+            max_iters: int = 2000, stopping_thresh: float = 1e-4,
+            normalize_error: bool = False, pc1_mask=None, pc2_mask=None,
+            planar: bool | None = None) -> IcpResult:
+    """ICP of one pair, the reference's entry point (modules/icp.py:
+    123-189): pc1 (N, D) onto pc2 (M, D) tensors, D 2 or 3. 2-D inputs are
+    lifted to z = 0 and take the planar fit unless planar says otherwise.
+    Returns the IcpResult of the pair, without the batch axis."""
+    if planar is None:
+        planar = pc1.shape[-1] == 2
+    pc1, pc2 = lift_to_3d(pc1), lift_to_3d(pc2)
+    if init_transform is None:
+        init_transform = torch.eye(4, dtype=pc1.dtype, device=pc1.device)
+    if pc1_mask is None:
+        pc1_mask = torch.ones(pc1.shape[:-1], dtype=torch.bool,
+                              device=pc1.device)
+    if pc2_mask is None:
+        pc2_mask = torch.ones(pc2.shape[:-1], dtype=torch.bool,
+                              device=pc2.device)
+    res = run_icp_batch(pc1[None], pc2[None], pc1_mask[None], pc2_mask[None],
+                        init_transform[None], epsilon=epsilon,
+                        max_iters=max_iters, stopping_thresh=stopping_thresh,
+                        normalize_error=normalize_error, planar=planar)
+    return IcpResult(*(a[0] for a in res))

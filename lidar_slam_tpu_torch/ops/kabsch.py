@@ -1,12 +1,13 @@
-"""Masked, batched planar Kabsch rigid alignment.
+"""Masked, batched Kabsch rigid alignment.
 
-Counterpart of the 2-D path of lidar_slam_tpu/ops/kabsch.py. The whole SLAM
-pipeline aligns z = 0 clouds, whose in-plane optimum is closed-form:
+Counterpart of lidar_slam_tpu/ops/kabsch.py. The whole SLAM pipeline
+aligns z = 0 clouds, whose in-plane optimum is closed-form:
 theta* = atan2(S01 - S10, S00 + S11) over the weighted cross-covariance S,
-the same result as an SVD with the det guard, with no iterative work.
-Point-to-line ICP (PLICP) adds the scan normals from ray-order neighbours
-and a point-to-line Gauss-Newton fit (scan_normals_planar,
-fit_point_to_line_planar).
+the same result as an SVD with the det guard, with no iterative work
+(kabsch_planar). The 3-D ICP warm-up (models/warmup.py) fits full 3-D
+clouds with the SVD path (kabsch). Point-to-line ICP (PLICP) adds the scan
+normals from ray-order neighbours and a point-to-line Gauss-Newton fit
+(scan_normals_planar, fit_point_to_line_planar).
 """
 
 from __future__ import annotations
@@ -18,6 +19,47 @@ def masked_centroid(pts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Weighted centroid over the points axis. pts (..., N, D), w (..., N)."""
     wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
     return torch.sum(pts * w[..., None], dim=-2) / wsum
+
+
+def kabsch(src: torch.Tensor, tgt: torch.Tensor,
+           w: torch.Tensor | None = None) -> torch.Tensor:
+    """Rigid transform T (..., D+1, D+1) minimizing
+    sum w_i ||R src_i + t - tgt_i||^2 over (..., N, D) clouds; w (..., N)
+    weights (bool masks work).
+
+    R = V diag(1, .., det(V U^T)) U^T from the SVD U S V^T of the weighted
+    cross-covariance, so det(R) = +1 (reference modules/icp.py:62-67). The
+    D x D SVD is torch.linalg.svd (LAPACK on the CPU, cuSOLVER on the
+    card), as the JAX package leaves it to jnp.linalg.svd: the two return
+    singular vectors of other signs, and R is the same for either sign
+    while the two smallest singular values differ.
+    """
+    D = src.shape[-1]
+    if w is None:
+        w = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
+    w = w.to(src.dtype)
+
+    cs = masked_centroid(src, w)
+    ct = masked_centroid(tgt, w)
+    X = (src - cs[..., None, :]) * w[..., None]
+    Y = tgt - ct[..., None, :]
+    S = torch.einsum("...nd,...ne->...de", X, Y)  # (..., D, D)
+
+    U, _, Vt = torch.linalg.svd(S)
+    V = Vt.transpose(-1, -2)
+    Ut = U.transpose(-1, -2)
+    det = torch.linalg.det(V @ Ut)
+    corr = torch.cat([torch.ones(det.shape + (D - 1,), dtype=src.dtype,
+                                 device=src.device), det[..., None]], dim=-1)
+    R = (V * corr[..., None, :]) @ Ut
+    t = ct - torch.einsum("...de,...e->...d", R, cs)
+
+    T = torch.zeros(src.shape[:-2] + (D + 1, D + 1), dtype=src.dtype,
+                    device=src.device)
+    T[..., :D, :D] = R
+    T[..., :D, D] = t
+    T[..., D, D] = 1.0
+    return T
 
 
 def kabsch_planar(

@@ -37,3 +37,31 @@ def gather_points(tgt: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """tgt (..., M, D) rows at idx (..., N) -> (..., N, D)."""
     ix = idx.long()[..., None].expand(idx.shape + (tgt.shape[-1],))
     return torch.gather(tgt, -2, ix)
+
+
+def nearest_neighbors_chunked(
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    tgt_mask: torch.Tensor | None = None,
+    src_chunk: int = 2048,
+) -> torch.Tensor:
+    """nearest_neighbors over the source axis in chunks of src_chunk
+    points: the same indices, with peak memory (B, src_chunk, M) in place
+    of (B, N, M), for warm-up-sized clouds on the CPU. src (B, N, D), tgt
+    (B, M, D) -> (B, N) int32. The NN kernel never holds the (B, N, M)
+    distances, so the card needs no chunking."""
+    return torch.cat([nearest_neighbors(src[:, i:i + src_chunk], tgt,
+                                        tgt_mask)
+                      for i in range(0, src.shape[1], src_chunk)], dim=1)
+
+
+def nearest_neighbor_dists(
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    tgt_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """nearest_neighbors and the true squared distance to each chosen
+    target: (idx (..., N) int32, d2 (..., N))."""
+    idx = nearest_neighbors(src, tgt, tgt_mask)
+    d2 = torch.sum((src - gather_points(tgt, idx)) ** 2, dim=-1)
+    return idx, d2

@@ -2,9 +2,10 @@
 
 Counterpart of lidar_slam_tpu/utils/png.py: write_png emits the same bytes
 for the same image (8-bit gray or RGB, 16-bit gray; filter type 0 on every
-scanline; zlib level 6). read_png is its pure-Python decoder (8-bit
-gray/RGB/RGBA and 16-bit gray, every scanline filter); the JAX package's
-native C++ decoder is not used here.
+scanline; zlib level 6). read_png decodes with the port's native libpng
+decoder (utils/native.py) where it builds, else in Python (read_png_python:
+8-bit gray/RGB/RGBA and 16-bit gray, every scanline filter); both give the
+same array.
 """
 
 from __future__ import annotations
@@ -63,8 +64,19 @@ def _paeth(a, b, c):
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read a non-interlaced PNG into a numpy array: (H, W) for gray,
-    (H, W, C) otherwise; uint8, or uint16 for 16-bit samples."""
+    """Read a PNG into a numpy array: (H, W) for gray, (H, W, C) otherwise;
+    uint8, or uint16 for 16-bit samples. The native decoder where libpng
+    built, else read_png_python (JAX utils/png.py:79-80)."""
+    from . import native
+
+    if native.png_available():
+        return native.read_png(path)
+    return read_png_python(path)
+
+
+def read_png_python(path: str) -> np.ndarray:
+    """The pure-Python decoder of a non-interlaced PNG (8-bit gray, RGB,
+    RGBA and 16-bit gray; every scanline filter)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":

@@ -70,9 +70,10 @@ def test_texture_equals_jax_device_engine(scene):
     want = jtex.generate_texture_map(
         poses, rgb_pose, np.arange(n), grid, loader, _map(jc, res),
         jc.CameraConfig(), batch_size=bs, projector="device")
-    got = ttex.generate_texture_map(
+    got, engine = ttex.generate_texture_map(
         poses, rgb_pose, np.arange(n), grid, loader, _map(tc, res),
         tc.CameraConfig(), batch_size=bs, device="cpu")
+    assert engine == "device"
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
     spec = _np_texture_reference(poses, rgb_pose, disp, rgb, grid,
@@ -81,7 +82,7 @@ def test_texture_equals_jax_device_engine(scene):
     painted = (got.numpy() != grid[..., None] / np.float32(255.0)).any(-1)
     assert painted.sum() >= 10
     if scene == "last_frame":  # frame 1 repaints every cell of frame 0
-        alone = ttex.generate_texture_map(
+        alone, _ = ttex.generate_texture_map(
             poses, rgb_pose[1:], np.arange(1), grid,
             lambda ids: (disp[ids + 1], rgb[ids + 1]), _map(tc, res),
             tc.CameraConfig(), device="cpu")
@@ -229,12 +230,7 @@ def test_disk_frame_loader_reads_the_reference_layout(tmp_path,
     np.testing.assert_array_equal(r, rgb)
 
 
-@pytest.mark.parametrize("projector", ["native", "auto"])
-def test_unported_projectors_raise(projector):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttex.generate_texture_map(np.zeros((1, 3)), np.zeros(1, int),
-                                  np.zeros(1, int), np.zeros((4, 4)),
-                                  None, projector=projector, device="cpu")
+def test_unknown_projector_raises():
     with pytest.raises(ValueError, match="unknown projector"):
         ttex.generate_texture_map(np.zeros((1, 3)), np.zeros(1, int),
                                   np.zeros(1, int), np.zeros((4, 4)),
