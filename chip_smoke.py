@@ -138,6 +138,23 @@ first failure and catches nothing):
      to nn_argmin_rounded and timed; (d) a 25,000-point sweep through
      voxel_downsample; (e) the warm-up CLI on the card and the CPU, the
      same "Best errors".
+ 17. the multi-rank layer (sharded_phase): 4 gloo ranks sharing the card
+     (parallel/launch.run_ranks, after [2] built the kernels) run (a) the
+     scan-sharded map of [3]'s seed-20 log (4,956 scans padded to 4,960,
+     clamp-affine composition of K2 deltas) against raywalk_build, within
+     1e-4 with finalize_grid equal, and again in one rank on NCCL; (b) the
+     ray-sharded map of its first 256 scans likewise; (c) the
+     factor-sharded LM on [5]'s graph in float64 against the banded
+     optimize (float32 printed) and the banded-only refusal; (d) the
+     superstep on a 64-scan window at full width on the (2, 2) mesh
+     against the unsharded composition; (e) PF localization (500 steps,
+     256 particles) and a relocalization at the CLI's budget with
+     sharded scorers, bit-equal to the single-device runs; (f) 64 texture
+     frames and their native paint ops, bit-equal; (g) [5]'s 4,955 ICP
+     pairs, each rank's block equal to the block run alone; then (h)
+     dryrun_multichip(4). Each prints its backend, world size, card
+     count, wall and collective seconds, bytes and K2 and K4 launches a
+     rank.
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2 and K4, and
@@ -149,6 +166,7 @@ larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
 every kernel with its profiler device time; nn_argmin also on [15] (c)'s
 polish inputs and on [16] (c)'s warm-up inputs, with [16]'s launches;
+K2 and K4 also with [17]'s launches over every rank;
 P1-P6 and nn_argmin at B = 1
 with their host split; P9 also with the probe tool's slopes), and
 {"ok": true, "device": ...}.
@@ -1575,6 +1593,560 @@ def warmup_phase(dev) -> dict:
             "syncs": syncs}
 
 
+SHARDED_RANKS = 4  # [17]: gloo ranks sharing the card
+# [17] (a): scans padded to a multiple of 8, as JAX's dataset-scale test
+# pads for its 8 devices (4,956 -> 4,960), so all-masked identity scans
+# run on the card too
+SCAN_PAD = 8
+SHARDED_MAP_TOL = 1e-4  # [17] (a), (b), (d): the JAX tests' map bound
+SHARDED_POSE_TOL, SHARDED_COST_RTOL = 2e-5, 1e-6  # [17] (c)
+STEP_TOL = 1e-6  # [17] (d): tests/test_superstep_goldens.py's bound
+FULL_WIDTH_TOL = 3e-3  # [17] (d), (g): the port's full-width ICP bound
+# (tests/test_torch_ops.py::test_scan_matching_full_width_bound)
+BLOCK_TOL = 1e-6  # [17] (g): a rank's block against the block run alone
+WINDOW, RAY_SCANS, PF_STEPS, TEX_FRAMES = 64, 256, 500, 64
+PF_LOG_STEPS = 4956  # [17] (e): [15]'s log
+# [17] (e): the online CLI's relocalization budget on the 60 x 60 m map
+SHARDED_RELOC = dict(search_radius=0.5 * float(np.hypot(60.0, 60.0)),
+                     beam=4096, n_angles=360, max_rays=256)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rank_stats(world, mesh, wall: float, k2: int, k4: int) -> list:
+    """Every rank's [wall s, collective s, bytes, collectives, K2 and K4
+    launches] of the sub-phase that just ran on `mesh`, gathered over the
+    1-D mesh `world` after it."""
+    from lidar_slam_tpu_torch.parallel.mesh import all_gather
+
+    mine = torch.tensor([wall, mesh.seconds, mesh.bytes, mesh.calls, k2,
+                         k4], dtype=torch.float64, device=mesh.device)
+    return all_gather(mine, world, "dp").tolist()
+
+
+def sharded_ranks(device, inp: dict) -> dict:
+    """[17]'s rank program: the sub-phases in inp["phases"], each timed on
+    the host clock to a synchronize, with the mesh's collective counters
+    and K2's and K4's launch counters reset just before it; the launches
+    of the comparisons a rank makes itself ((g)'s block run alone) are
+    not counted. Returns, on every rank, each sub-phase's result and
+    every rank's stats."""
+    import torch.distributed as dist
+
+    from lidar_slam_tpu_torch.config import (IcpConfig, PoseGraphConfig,
+                                             SlamConfig)
+    from lidar_slam_tpu_torch.kernels.nn import nn_argmin
+    from lidar_slam_tpu_torch.kernels.raywalk import raywalk_scan
+    from lidar_slam_tpu_torch.models import particle_filter as pf
+    from lidar_slam_tpu_torch.models import relocalization as rl
+    from lidar_slam_tpu_torch.models.scan_matching import pad_pairs
+    from lidar_slam_tpu_torch.ops import icp as icp_ops
+    from lidar_slam_tpu_torch.ops import scan as scan_ops
+    from lidar_slam_tpu_torch.parallel import sharding
+    from lidar_slam_tpu_torch.parallel.mesh import all_gather, make_mesh
+    from lidar_slam_tpu_torch.parallel.superstep import make_slam_step
+    from lidar_slam_tpu_torch.utils import se2
+
+    cfg = SlamConfig()
+    m1 = make_mesh(device=device.type)
+    D = m1.size("dp")
+    f = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        a, dtype=dt, device=device)
+    out = {"backend": m1.backend, "world": dist.get_world_size(),
+           "cards": torch.cuda.device_count()}
+
+    def timed(tag, mesh, fn):
+        _sync(device)
+        raywalk_scan.launches = nn_argmin.launches = 0
+        mesh.reset_counters()
+        t0 = time.perf_counter()
+        result = fn()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        k2, k4 = raywalk_scan.launches, nn_argmin.launches
+        out[tag] = result
+        out[f"{tag}_stats"] = _rank_stats(m1, mesh, wall, k2, k4)
+        return result
+
+    a = inp.get("a")
+    if a is not None:
+        pts, masks = scan_ops.scans_to_points(f(a["ranges"]), 0.1, 30.0,
+                                              cfg.lidar)
+        gt = f(a["gt"])
+    if "a" in inp["phases"]:
+        p_, m_, g_ = (sharding.pad_batch(x, SCAN_PAD, pad_value=v)[0]
+                      for x, v in ((pts, 0), (masks, False), (gt, 0)))
+        build = sharding.sharded_build_logodds_scans(m1, cfg.map, a["K"])
+        timed("a", m1, lambda: build(g_, p_, m_).cpu())
+    if "b" in inp["phases"]:
+        n = inp["b"]["scans"]
+        p_ = sharding.pad_batch(pts[:n], D, axis=1)[0]
+        m_ = sharding.pad_batch(masks[:n], D, axis=1, pad_value=False)[0]
+        build = sharding.sharded_build_logodds(m1, cfg.map, a["K"])
+        timed("b", m1, lambda: build(gt[:n], p_, m_).cpu())
+    if "c" in inp["phases"]:
+        c = inp["c"]
+        pg_cfg = PoseGraphConfig(**c["cfg"])
+        run = sharding.sharded_optimize_trajectory(m1, pg_cfg)
+        li, lj, mask = (f(c[k], None) for k in ("li", "lj", "mask"))
+        for dt, tag in ((torch.float64, "c"), (torch.float32, "c32")):
+            args = (f(c["x0"], dt), f(c["rel"], dt), li, lj,
+                    f(c["meas"], dt), mask)
+            timed(tag, m1, lambda: run(*args))
+        wide, live = lj.clone(), mask.clone()
+        wide[0] += 5 * pg_cfg.fixed_interval
+        live[0] = True
+        try:
+            run(f(c["x0"], torch.float64), f(c["rel"], torch.float64), li,
+                wide, f(c["meas"], torch.float64), live)
+            out["c_guard"] = ""
+        except ValueError as err:
+            out["c_guard"] = str(err)
+    if "d" in inp["phases"]:
+        d = inp["d"]
+        m2 = make_mesh(axes=("dp", "rp"), device=device.type)
+        step = make_slam_step(m2, cfg.map, a["K"], IcpConfig(),
+                              PoseGraphConfig(max_lm_iters=3))
+        args = (f(d["points"]), f(d["masks"], torch.bool), f(d["odom"]),
+                torch.zeros((cfg.map.width, cfg.map.height), device=device))
+        timed("d", m2, lambda: step(*args))
+        # the step's ICP iterations, for the near-tie exception
+        pts_w, msk_w, odom = args[:3]
+        seeds = se2.TSE3_from_TSE2(se2.get_relative_pose(odom[:-1],
+                                                         odom[1:]))
+        icp = IcpConfig()
+        res = sharding.sharded_icp_batch(m2, "dp")(
+            *pad_pairs(pts_w[1:], pts_w[:-1], msk_w[1:], msk_w[:-1], seeds,
+                       m2.size("dp")), epsilon=icp.epsilon,
+            max_iters=icp.max_iters, stopping_thresh=icp.stopping_thresh,
+            planar=True)
+        out["d_iters"] = res.iters[:pts_w.shape[0] - 1].cpu()
+    if "e" in inp["phases"]:
+        e = inp["e"]
+        m = e["map"]
+        pcfg = pf.PFConfig(n_particles=e["particles"])
+        p_e, m_e = scan_ops.scans_to_points(f(e["ranges"]), 0.1, 30.0,
+                                            cfg.lidar)
+        score = sharding.sharded_pf_score(m1, m)
+        timed("e_pf", m1, lambda: pf.localize_particle_filter(
+            f(e["im"]), f(e["counts"]), f(e["gyro"]), p_e, m_e, m, pcfg,
+            x0=f(e["x0"]), score_fn=score,
+            noise=tuple(map(f, e["noise"])), device=device))
+        rcfg = rl.RelocConfig(**e["reloc_cfg"])
+        nodes = sharding.sharded_reloc_score(m1)
+        timed("e_reloc", m1, lambda: rl.relocalize(
+            f(e["hit"]), m, f(e["reloc_pts"]),
+            f(e["reloc_mask"], torch.bool), rcfg, score_fn=nodes))
+    if "f" in inp["phases"]:
+        poses_t, disp, rgb = texture_batch(inp["f"]["frames"])
+        B = disp.shape[0]
+        paint = sharding.sharded_texture_paint(m1, cfg.map, cfg.camera)
+        cells = cfg.map.width * cfg.map.height
+        carry = lambda: (torch.full((cells,), -1, dtype=torch.int32,  # noqa
+                                    device=device),
+                         torch.zeros(cells, dtype=torch.int32,
+                                     device=device))
+        timed("f_frames", m1, lambda: tuple(x.cpu() for x in paint(
+            *carry(), f(disp), torch.as_tensor(rgb, device=device),
+            f(poses_t), torch.ones(B, dtype=torch.bool, device=device), 0)))
+        ops = torch.as_tensor(inp["f"]["ops"], device=device)
+        paint_ops = sharding.sharded_paint_ops(m1, cfg.map)
+        timed("f_ops", m1, lambda: tuple(
+            x.cpu() for x in paint_ops(*carry(), ops, 0)))
+    if "g" in inp["phases"]:
+        g = inp["g"]
+        p3, m3 = scan_ops.scans_to_points(f(g["ranges"]), 0.1, 30.0,
+                                          cfg.lidar)
+        p3 = icp_ops.lift_to_3d(p3)
+        odo = f(g["odom"])
+        seeds = se2.TSE3_from_TSE2(se2.get_relative_pose(odo[:-1], odo[1:]))
+        pairs = pad_pairs(p3[1:], p3[:-1], m3[1:], m3[:-1], seeds, D)
+        kw = dict(epsilon=cfg.icp.epsilon, max_iters=cfg.icp.max_iters,
+                  stopping_thresh=cfg.icp.stopping_thresh, planar=True)
+        icp = sharding.sharded_icp_batch(m1)
+        res = timed("g", m1, lambda: icp(*pairs, **kw))
+        out["g"] = tuple(x.cpu() for x in res[:3])
+        # this rank's block run alone on the card (not counted)
+        b = pairs[0].shape[0] // D
+        r = m1.index("dp")
+        sl = slice(r * b, (r + 1) * b)
+        alone = icp_ops.run_icp_batch(*(x[sl] for x in pairs), **kw)
+        mine = torch.tensor(
+            [float((alone.T - res.T[sl]).abs().max()),
+             float((alone.iters != res.iters[sl]).sum())],
+            dtype=torch.float64, device=device)
+        out["g_blocks"] = all_gather(mine, m1, "dp").tolist()
+    return out
+
+
+def texture_batch(n: int):
+    """(poses (n, 3), disp (n, H, W) float32, rgb) of texture_frames()'s
+    first n frames, loaded 16 at a time as [13] loads them."""
+    poses, loader = texture_frames()
+    disp, rgb = zip(*(loader(np.arange(s, min(s + 16, n)))
+                      for s in range(0, n, 16)))
+    return (poses[:n], np.concatenate(disp).astype(np.float32),
+            np.concatenate(rgb))
+
+
+def sharded_phase(dev, cfg, d20, res5, log21, pts21, masks21) -> dict:
+    """[17]: the multi-rank layer on the card. One run of sharded_ranks on
+    SHARDED_RANKS gloo ranks sharing the card does (a)-(g); (a) runs again
+    in one rank on NCCL; (h) is dryrun_multichip(4). Every rank computes
+    on the card; the single-device oracles run here, on the card. Gates:
+    (a) the scan-sharded map of the seed-20 log (4,956 scans padded to
+    4,960) against raywalk_build within 1e-4, finalize_grid equal; (b)
+    the ray-sharded map of its first 256 scans (1,081 rays padded to
+    1,084) likewise; (c) the factor-sharded LM on [5]'s graph in float64
+    against the banded optimize (poses 2e-5, cost 1e-6 relative,
+    iterations within one; float32 printed), and a wide live arc raises;
+    (d) the superstep on a 64-scan window at full width (1,082 rays) on
+    the (2, 2) mesh against the unsharded composition (poses and ICP
+    errors 1e-6, or 3e-3 where an NN near-tie changed a pair's
+    iterations; log-odds 1e-4, finalized grids equal); (e) PF
+    localization (256 particles, 500 steps) and one relocalization at the
+    CLI's budget with sharded scorers, bit-equal to the single-device
+    runs; (f) 64 texture frames and their native paint ops, bit-equal to
+    paint_cells and paint_ops; (g) [5]'s 4,955 ICP pairs (padded to
+    4,956): each rank's block equal to the block run alone (iterations,
+    T within 1e-6), T within 3e-3 of [5]'s scan matching, K4's indices
+    equal to nn_argmin_rounded. Returns K2's and K4's launches over the
+    ranks."""
+    import dataclasses
+
+    from lidar_slam_tpu_torch.config import (IcpConfig, MapConfig,
+                                             PoseGraphConfig)
+    from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
+    from lidar_slam_tpu_torch.models import (occupancy, odometry,
+                                             particle_filter, pose_graph,
+                                             relocalization, slam, texture)
+    from lidar_slam_tpu_torch.ops import icp as icp_ops
+    from lidar_slam_tpu_torch.ops import scan as scan_ops
+    from lidar_slam_tpu_torch.parallel import dryrun, launch
+    from lidar_slam_tpu_torch.parallel.mesh import pick_backend
+    from lidar_slam_tpu_torch.utils import io, native, se2
+
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa
+                                    device=dev)
+    gt20 = np.asarray(d20["ground_truth"], np.float32)
+    ranges20 = np.asarray(d20["lidar"]["ranges"], np.float32)
+    pts20, masks20 = scan_ops.scans_to_points(f32(ranges20), 0.1, 30.0,
+                                              cfg.lidar)
+    K = occupancy.adaptive_ray_cells(pts20, masks20, cfg.map, 30.0)
+    inp = {"a": dict(ranges=ranges20, gt=gt20, K=K),
+           "b": dict(scans=RAY_SCANS)}
+
+    # (c) [5]'s fixed-interval graph, loops verified as run_slam does
+    counts21, gyro21 = (f32(x) for x in log21[:2])
+    md, my = odometry.max_step_gates(counts21, gyro21, cfg.robot.dt)
+    cand = slam.loop_closure_candidates(pts21.shape[0], 10)
+    loop_T, accept, _, _ = slam.compute_loop_closures(
+        icp_ops.lift_to_3d(pts21), masks21, cand, 10, float(md), float(my))
+    pg_cfg = dataclasses.replace(cfg.pose_graph, solver="banded",
+                                 fixed_interval=10)
+    inp["c"] = dict(x0=res5.poses_scan_matching.astype(np.float64),
+                    rel=res5.relative_poses_scan_matching.astype(np.float64),
+                    li=cand, lj=cand + 10, meas=loop_T.double().cpu().numpy(),
+                    mask=accept.cpu().numpy(),
+                    cfg=dataclasses.asdict(pg_cfg))
+
+    # (d) a 64-scan window of (a)'s log, 1,081 rays padded to 1,082
+    d_pts = torch.nn.functional.pad(icp_ops.lift_to_3d(pts20[:WINDOW]),
+                                    (0, 0, 0, 1))
+    d_masks = torch.nn.functional.pad(masks20[:WINDOW], (0, 1))
+    odom20 = odometry.poses_from_odometry(
+        f32(d20["encoder"]["counts"][:WINDOW]),
+        f32(d20["imu"]["angular_velocity"][:WINDOW]), x_0=f32(gt20[0]))
+    inp["d"] = dict(points=d_pts.cpu().numpy(), masks=d_masks.cpu().numpy(),
+                    odom=odom20.cpu().numpy())
+
+    # (e) [15] (a)'s localization run, first PF_STEPS steps; [15] (c)'s
+    # relocalization of scan RELOC_GATED_SCAN on its log's map
+    m = MapConfig.from_cli(0.05, 60, 60)
+    Km = occupancy.max_ray_cells(m, 30.0)
+    d21 = io.synthetic_dataset(n_steps=PF_LOG_STEPS, n_rays=1081, seed=21)
+    gt21 = f32(d21["ground_truth"])
+    p21, mk21 = scan_ops.scans_to_points(f32(d21["lidar"]["ranges"]), 0.1,
+                                         30.0, cfg.lidar)
+    im = relocalization.hit_map(occupancy.build_logodds(gt21, p21, mk21, m,
+                                                        Km))
+    d_s = io.synthetic_dataset(n_steps=RELOC_GATED_STEPS, n_rays=1081,
+                               seed=21)
+    p_s, mk_s = scan_ops.scans_to_points(f32(d_s["lidar"]["ranges"]), 0.1,
+                                         30.0, cfg.lidar)
+    hit_s = relocalization.hit_map(occupancy.build_logodds(
+        f32(d_s["ground_truth"]), p_s, mk_s, m, Km))
+    rng = np.random.default_rng(17)
+    n_e = PF_STEPS
+    noise = (rng.standard_normal((n_e - 1, PF_PARTICLES)).astype(np.float32),
+             rng.standard_normal((n_e - 1, PF_PARTICLES)).astype(np.float32),
+             rng.random(n_e - 1).astype(np.float32))
+    k = RELOC_GATED_SCAN
+    inp["e"] = dict(
+        map=m, particles=PF_PARTICLES,
+        ranges=np.asarray(d21["lidar"]["ranges"][:n_e], np.float32),
+        counts=np.asarray(d21["encoder"]["counts"][:n_e], np.float32) * 1.15,
+        gyro=np.asarray(d21["imu"]["angular_velocity"][:n_e], np.float32),
+        x0=np.asarray(d21["ground_truth"][0], np.float32), noise=noise,
+        im=im.cpu().numpy(), hit=hit_s.cpu().numpy(),
+        reloc_pts=p_s[k].cpu().numpy(), reloc_mask=mk_s[k].cpu().numpy(),
+        reloc_cfg=SHARDED_RELOC)
+
+    # (f) the first TEX_FRAMES of [13]'s frames and their native ops
+    poses_t, disp, rgb = texture_batch(TEX_FRAMES)
+    op_cells, op_colors = native.project_frames(
+        disp.astype(np.uint16), rgb, poses_t.astype(np.float64), cfg.camera,
+        cfg.map)
+    inp["f"] = dict(frames=TEX_FRAMES, ops=texture._pad_paint_ops(
+        op_cells, op_colors, multiple_of=SHARDED_RANKS))
+
+    # (g) [5]'s consecutive pairs, seeded by its odometry
+    inp["g"] = dict(ranges=np.asarray(log21[2], np.float32),
+                    odom=res5.poses_odom)
+    inp["phases"] = ("a", "b", "c", "d", "e", "f", "g")
+
+    def head(tag, r):
+        return (f"[17] {tag} ({r['backend']}, world size {r['world']}, "
+                f"{r['cards']} card(s))")
+
+    def stats(s):
+        s = np.asarray(s)
+        return (f"wall {s[:, 0].max():.3f} s; collectives {s[0, 3]:.0f} a "
+                f"rank, {s[:, 1].max():.3f} s, {s[0, 2]:,.0f} bytes a rank;"
+                f" K2 launches a rank {s[:, 4].astype(int).tolist()}, K4 "
+                f"{s[:, 5].astype(int).tolist()}")
+
+    t0 = time.perf_counter()
+    r = launch.run_ranks(sharded_ranks, SHARDED_RANKS, None, dev.type, inp)
+    print(f"[17] {SHARDED_RANKS} ranks spawned and run in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {"raywalk_scan": 0, "nn_argmin": 0}
+    for key, val in r.items():
+        if key.endswith("_stats"):
+            s = np.asarray(val)
+            launches["raywalk_scan"] += int(s[:, 4].sum())
+            launches["nn_argmin"] += int(s[:, 5].sum())
+
+    # (a) against K1's whole build
+    ref_a = raywalk_build(occupancy.ray_ends(f32(gt20), pts20, cfg.map),
+                          masks20, cfg.map, K).cpu()
+    diff_a = float((r["a"] - ref_a).abs().max())
+    same_a = torch.equal(occupancy.finalize_grid(r["a"]),
+                         occupancy.finalize_grid(ref_a))
+    sat = int((ref_a.abs() >= cfg.map.logodds_clip).sum())
+    n20 = gt20.shape[0]
+    print(f"{head('(a) scan-sharded map', r)}, {ref_a.shape[0]} x "
+          f"{ref_a.shape[1]}, {n20} scans padded to "
+          f"{-(-n20 // SCAN_PAD) * SCAN_PAD}, K={K}: max |diff| "
+          f"against raywalk_build {diff_a:.3e}, finalize_grid equal "
+          f"{same_a}, saturated cells {sat}; {stats(r['a_stats'])}",
+          flush=True)
+    if diff_a > SHARDED_MAP_TOL or not same_a or sat == 0:
+        fail("[17] (a) the scan-sharded map disagrees with raywalk_build")
+    t0 = time.perf_counter()
+    r1 = launch.run_ranks(sharded_ranks, 1, None, dev.type,
+                          dict(a=inp["a"], phases=("a",)))
+    diff_1 = float((r1["a"] - ref_a).abs().max())
+    same_1 = torch.equal(occupancy.finalize_grid(r1["a"]),
+                         occupancy.finalize_grid(ref_a))
+    print(f"{head('(a) repeated', r1)}: max |diff| against raywalk_build "
+          f"{diff_1:.3e}, finalize_grid equal {same_1}; against the "
+          f"{SHARDED_RANKS}-rank map "
+          f"{float((r1['a'] - r['a']).abs().max()):.3e}; "
+          f"{stats(r1['a_stats'])}; spawned and run in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if (r1["backend"] != pick_backend(1, dev)
+            or diff_1 > SHARDED_MAP_TOL or not same_1):
+        fail("[17] (a) the one-rank NCCL map disagrees with raywalk_build")
+    for key in ("raywalk_scan", "nn_argmin"):
+        launches[key] += int(np.asarray(r1["a_stats"])[:, 4 if key ==
+                                                        "raywalk_scan" else 5]
+                             .sum())
+
+    # (b) the ray split against K1 on the same scans
+    n = RAY_SCANS
+    ref_b = raywalk_build(
+        occupancy.ray_ends(f32(gt20[:n]), pts20[:n], cfg.map),
+        masks20[:n].contiguous(), cfg.map, K).cpu()
+    diff_b = float((r["b"] - ref_b).abs().max())
+    same_b = torch.equal(occupancy.finalize_grid(r["b"]),
+                         occupancy.finalize_grid(ref_b))
+    print(f"{head('(b) ray-sharded map', r)}, {n} scans x 1,081 rays padded "
+          f"to 1,084: max |diff| against raywalk_build {diff_b:.3e}, "
+          f"finalize_grid equal {same_b}; {stats(r['b_stats'])}", flush=True)
+    if diff_b > SHARDED_MAP_TOL or not same_b:
+        fail("[17] (b) the ray-sharded map disagrees with raywalk_build")
+
+    # (c) the factor-sharded LM against the banded optimize
+    c = inp["c"]
+    gaps = {}
+    for dt, tag in ((torch.float64, "c"), (torch.float32, "c32")):
+        ref = pose_graph.optimize_trajectory(
+            *(torch.as_tensor(c[k], device=dev).to(dt)
+              for k in ("x0", "rel")),
+            torch.as_tensor(c["li"], device=dev),
+            torch.as_tensor(c["lj"], device=dev),
+            torch.as_tensor(c["meas"], device=dev).to(dt),
+            torch.as_tensor(c["mask"], device=dev), pg_cfg)
+        got = r[tag]
+        gaps[tag] = (float((got.poses - ref.poses.cpu()).abs().max()),
+                     abs(float(got.cost) - float(ref.cost))
+                     / abs(float(ref.cost)), got.iterations, ref.iterations)
+        print(f"{head('(c) factor-sharded LM', r)} on [5]'s graph in "
+              f"{str(dt)[6:]} ({c['x0'].shape[0]} poses, "
+              f"{int(c['mask'].sum())}/{len(c['mask'])} loops live): "
+              f"iterations {got.iterations} (banded {ref.iterations}), cost "
+              f"{float(got.cost):.9g} (banded {float(ref.cost):.9g}); max "
+              f"pose diff {gaps[tag][0]:.3e}, cost rel diff "
+              f"{gaps[tag][1]:.3e}" + ("" if tag == "c" else " (printed, "
+                                       "not gated: [14] (d))")
+              + f"; {stats(r[f'{tag}_stats'])}", flush=True)
+    g64 = gaps["c"]
+    if (g64[0] > SHARDED_POSE_TOL or g64[1] > SHARDED_COST_RTOL
+            or abs(g64[2] - g64[3]) > 1):
+        fail("[17] (c) the factor-sharded LM disagrees with the banded "
+             "solve")
+    print(f"[17] (c) guard, a live arc 60 poses wide: {r['c_guard']!r}",
+          flush=True)
+    if "banded-only" not in r["c_guard"]:
+        fail("[17] (c) the wide live arc did not raise")
+
+    # (d) the superstep against the unsharded composition at its caps
+    d = inp["d"]
+    pts_w, msk_w, odom = (torch.as_tensor(d[k], device=dev)
+                          for k in ("points", "masks", "odom"))
+    icp = IcpConfig()
+    pgc = PoseGraphConfig(max_lm_iters=3)
+    seeds = se2.TSE3_from_TSE2(se2.get_relative_pose(odom[:-1], odom[1:]))
+    res = icp_ops.run_icp_batch(pts_w[1:], pts_w[:-1], msk_w[1:],
+                                msk_w[:-1], seeds, epsilon=icp.epsilon,
+                                max_iters=icp.max_iters,
+                                stopping_thresh=icp.stopping_thresh,
+                                planar=True)
+    rel2 = se2.TSE2_from_TSE3(res.T)
+    poses0 = se2.pose_from_T(se2.compose_chain(rel2,
+                                               se2.T_from_pose(odom[0])))
+    graph = pose_graph.make_graph(rel2, pgc, prior_pose=odom[0])
+    opt = pose_graph.optimize(poses0, graph, max_iters=pgc.max_lm_iters,
+                              cg_iters=pgc.cg_iters,
+                              lambda_init=pgc.lambda_init,
+                              lambda_up=pgc.lambda_up,
+                              lambda_down=pgc.lambda_down,
+                              solver=pgc.solver)
+    grid = occupancy.build_logodds(opt.poses, pts_w[..., :2], msk_w,
+                                   cfg.map, K).cpu()
+    got = r["d"]
+    ties = torch.nonzero(r["d_iters"][:res.iters.numel()]
+                         != res.iters.cpu()).flatten().tolist()
+    tied = [(i, int(r["d_iters"][i]), int(res.iters[i])) for i in ties]
+    tol = FULL_WIDTH_TOL if ties else STEP_TOL
+    dp = float((got.poses - opt.poses.cpu()).abs().max())
+    de = float((got.icp_errors - res.error.cpu()).abs().max())
+    dg = float((got.logodds - grid).abs().max())
+    same_d = torch.equal(occupancy.finalize_grid(got.logodds),
+                         occupancy.finalize_grid(grid))
+    print(f"{head('(d) superstep', r)}, (dp, rp) = (2, 2), {WINDOW} scans x "
+          f"1,082 rays: max pose diff against the unsharded composition "
+          f"{dp:.3e}, ICP error diff {de:.3e}, log-odds {dg:.3e}, finalized "
+          f"grids equal {same_d}; pairs whose ICP iterations differ "
+          f"(float32 NN near-ties; sharded, alone) {tied}, pose gate "
+          f"{tol:g}; {stats(r['d_stats'])}", flush=True)
+    if dp > tol or de > tol or dg > SHARDED_MAP_TOL or not same_d:
+        fail("[17] (d) the superstep disagrees with the unsharded "
+             "composition")
+
+    # (e) the sharded scorers against the single-device runs
+    e = inp["e"]
+    p_e, m_e = scan_ops.scans_to_points(f32(e["ranges"]), 0.1, 30.0,
+                                        cfg.lidar)
+    want = particle_filter.localize_particle_filter(
+        f32(e["im"]), f32(e["counts"]), f32(e["gyro"]), p_e, m_e, m,
+        particle_filter.PFConfig(n_particles=PF_PARTICLES), x0=f32(e["x0"]),
+        noise=tuple(map(f32, e["noise"])), device=dev)
+    got = r["e_pf"]
+    same_pf = (torch.equal(got[0], want[0].cpu())
+               and torch.equal(got[1]["resampled"],
+                               want[1]["resampled"].cpu()))
+    rw = relocalization.relocalize(
+        f32(e["hit"]), m, f32(e["reloc_pts"]),
+        torch.as_tensor(e["reloc_mask"], device=dev),
+        relocalization.RelocConfig(**e["reloc_cfg"]))
+    same_rl = all(torch.equal(a_.cpu(), b_) for a_, b_ in
+                  zip(rw, r["e_reloc"]))
+    print(f"{head('(e) particle-sharded PF', r)}, {PF_STEPS} steps x "
+          f"{PF_PARTICLES} particles: track and resample flags bit-equal "
+          f"{same_pf} ({int(got[1]['resampled'].sum())} resamples); "
+          f"{stats(r['e_pf_stats'])}", flush=True)
+    print(f"{head('(e) node-sharded relocalization', r)}, scan "
+          f"{RELOC_GATED_SCAN} at the CLI's budget: pose, score, certificate"
+          f" and margin bit-equal {same_rl} (score "
+          f"{float(r['e_reloc'].score):.0f}, certified "
+          f"{bool(r['e_reloc'].certified)}); {stats(r['e_reloc_stats'])}",
+          flush=True)
+    if not (same_pf and same_rl):
+        fail("[17] (e) a sharded scorer's run differs from the "
+             "single-device run")
+
+    # (f) the paints against paint_cells and paint_ops
+    cells = cfg.map.width * cfg.map.height
+    carry = lambda: (torch.full((cells,), -1, dtype=torch.int32,  # noqa
+                                device=dev),
+                     torch.zeros(cells, dtype=torch.int32, device=dev))
+    lin, cols, _ = texture.frames_to_cells(f32(disp), torch.as_tensor(
+        rgb, device=dev), f32(poses_t), cfg.map, cfg.camera)
+    want_f = texture.paint_cells(*carry(), lin, cols, 0)
+    want_o = texture.paint_ops(*carry(), torch.as_tensor(inp["f"]["ops"],
+                                                         device=dev), 0)
+    same_f = all(torch.equal(a_.cpu(), b_)
+                 for a_, b_ in zip(want_f, r["f_frames"]))
+    same_o = all(torch.equal(a_.cpu(), b_)
+                 for a_, b_ in zip(want_o, r["f_ops"]))
+    print(f"{head('(f) frame-sharded texture', r)}, {TEX_FRAMES} frames of "
+          f"480 x 640: winner and colour bit-equal to paint_cells {same_f} "
+          f"({int((r['f_frames'][0] >= 0).sum())} cells); "
+          f"{stats(r['f_frames_stats'])}", flush=True)
+    print(f"{head('(f) op-stream paint', r)}, {len(op_cells)} native ops "
+          f"padded to {inp['f']['ops'].shape[1]}: bit-equal to paint_ops "
+          f"{same_o}; {stats(r['f_ops_stats'])}", flush=True)
+    if not (same_f and same_o) or int((r["f_frames"][0] >= 0).sum()) == 0:
+        fail("[17] (f) a sharded paint differs from the sequential paint")
+
+    # (g) the pair-sharded ICP against [5]'s chunks and its blocks alone
+    T_g, err_g, it_g = (x[:pts21.shape[0] - 1] for x in r["g"])
+    blocks = np.asarray(r["g_blocks"])
+    rel_g = se2.TSE2_from_TSE3(T_g)
+    gap_g = float((rel_g - torch.as_tensor(
+        res5.relative_poses_scan_matching)).abs().max())
+    other = int((it_g.numpy() != res5.scan_matching_iters).sum())
+    src = icp_ops.lift_to_3d(pts21)
+    moved = icp_ops._transform(src[1:65], T_g[:64].to(dev))
+    flips, gap, *_ = nn_check(moved.contiguous(), src[:64].contiguous(),
+                              masks21[:64].contiguous(), 5)
+    print(f"{head('(g) pair-sharded ICP', r)}, {pts21.shape[0] - 1} pairs "
+          f"padded to {pts21.shape[0]}: each rank's block against the block "
+          f"run alone: max T diff {blocks[:, 0].tolist()}, pairs with other "
+          f"iterations {blocks[:, 1].astype(int).tolist()}; against [5]'s "
+          f"64-pair chunks: {other} pairs with another iteration count, "
+          f"max T gap {gap_g:.3e} (gate {FULL_WIDTH_TOL:g}); K4 on the first"
+          f" 64 pairs at the result: {NN_EXACT}, flips {flips:.5f}; "
+          f"{stats(r['g_stats'])}", flush=True)
+    if (blocks[:, 0].max() > BLOCK_TOL or blocks[:, 1].any()
+            or gap_g > FULL_WIDTH_TOL):
+        fail("[17] (g) the pair-sharded ICP disagrees")
+
+    # (h) the counterpart of __graft_entry__.dryrun_multichip
+    t0 = time.perf_counter()
+    s = dryrun.dryrun_multichip(SHARDED_RANKS, dev.type)
+    print(f"[17] (h) dryrun_multichip({SHARDED_RANKS}) on {dev.type}: "
+          f"{time.perf_counter() - t0:.1f} s with the spawn", flush=True)
+    if s["backend"] != "gloo" or not s["device"].startswith(dev.type):
+        fail("[17] (h) the dry run did not run on the card")
+    return launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2118,6 +2690,8 @@ def main() -> int:
     launches_pf, nn_pf = pf_reloc_phase(dev, cfg)
     # 16. the 3-D ICP warm-up
     warm = warmup_phase(dev)
+    # 17. the multi-rank layer
+    launches_sh = sharded_phase(dev, cfg, d20, res, log21, pts21, masks21)
 
     print(card)
     # launches: the main paths' runs, gtsam [5] plus online [8]; the
@@ -2145,7 +2719,8 @@ def main() -> int:
          "library_ms_warmup": warm["nn"][4],
          "bound_ms_warmup": warm["nn"][5][0],
          "bound_by_warmup": warm["nn"][5][1],
-         "device_ms_warmup": warm["device_ms"]},
+         "device_ms_warmup": warm["device_ms"],
+         "launches_sharded": launches_sh["nn_argmin"]},
         # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",
@@ -2168,7 +2743,8 @@ def main() -> int:
          "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound[0], "bound_by": scan_bound[1],
          "library_ms": None, "device_ms": dev_scan,
-         "launches_pf_reloc": launches_pf["raywalk_scan"]},
+         "launches_pf_reloc": launches_pf["raywalk_scan"],
+         "launches_sharded": launches_sh["raywalk_scan"]},
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

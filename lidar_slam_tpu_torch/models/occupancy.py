@@ -187,13 +187,19 @@ def build_logodds(
     """
     from ..kernels.raywalk import raywalk_build
 
+    check_backend(backend, poses)
+    return raywalk_build(ray_ends(poses, points, cfg), masks, cfg, K, init)
+
+
+def check_backend(backend: str, t: torch.Tensor) -> None:
+    """A map builder's backend: "auto" (the kernels for CUDA tensors, their
+    plain versions for CPU tensors) or "cuda" (raises for CPU tensors)."""
     if backend not in ("auto", "cuda"):
         raise ValueError(f"unknown map backend {backend!r}; "
                          "known: auto, cuda")
-    if backend == "cuda" and not poses.is_cuda:
-        raise RuntimeError("build_logodds(backend='cuda') needs CUDA "
-                           f"tensors, got {poses.device}")
-    return raywalk_build(ray_ends(poses, points, cfg), masks, cfg, K, init)
+    if backend == "cuda" and not t.is_cuda:
+        raise RuntimeError("map backend 'cuda' needs CUDA tensors, got "
+                           f"{t.device}")
 
 
 def finalize_grid(logodds: torch.Tensor) -> torch.Tensor:

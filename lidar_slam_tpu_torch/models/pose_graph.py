@@ -295,16 +295,27 @@ def _banded_rhs(g, n: int, band: int):
     return R
 
 
+def _loop_span_violation(loop_i: torch.Tensor, loop_j: torch.Tensor,
+                         loop_mask: torch.Tensor, band: int):
+    """The (min, max) span loop_j - loop_i of the live loops when one lies
+    outside [0, band], else None: the banded assembly keeps off-diagonal
+    blocks in the lower triangle, so a reversed arc is outside too. Reads
+    the loop arrays on the host. The one span check behind optimize's
+    fallback to "direct" and the sharded solver's refusals."""
+    if loop_i.shape[0] == 0:
+        return None
+    span = (loop_j - loop_i)[loop_mask.bool()]
+    if span.numel() == 0:
+        return None
+    lo, hi = int(span.min()), int(span.max())
+    return (lo, hi) if hi > band or lo < 0 else None
+
+
 def banded_exact(graph: PoseGraph, band: int) -> bool:
     """Whether the banded solve is exact for this graph: every live loop
-    factor spans 0 <= loop_j - loop_i <= band (a reversed arc counts as
-    outside, since the banded assembly keeps off-diagonal blocks in the
-    lower triangle). Reads the loop arrays on the host."""
-    if graph.loop_i.shape[0] == 0:
-        return True
-    span = (graph.loop_j - graph.loop_i)[graph.loop_mask]
-    return not (span.numel() and (int(span.max()) > band
-                                  or int(span.min()) < 0))
+    factor spans 0 <= loop_j - loop_i <= band."""
+    return _loop_span_violation(graph.loop_i, graph.loop_j,
+                                graph.loop_mask, band) is None
 
 
 def _robust_w_rho(e2: torch.Tensor, kind: str, delta: float):
@@ -377,12 +388,13 @@ def optimize(
 
     solver "banded": the exact super-block tridiagonal solve, exact only
     when every live loop spans at most `band` poses forward; a graph that
-    breaks that falls back to "direct" (banded_exact). "direct": the exact
-    Newton step, SPIKE over the chain's block-tridiagonal Hessian plus a
-    Woodbury correction for the loop factors, any topology. "cg":
-    block-Jacobi preconditioned CG, warm-started from the last rejected
-    step. robust in {"none", "huber", "cauchy"} applies that m-estimator
-    (width robust_delta, whitened units) to the LOOP factors by IRLS.
+    breaks that falls back to "direct" (_loop_span_violation). "direct":
+    the exact Newton step, SPIKE over the chain's block-tridiagonal
+    Hessian plus a Woodbury correction for the loop factors, any
+    topology. "cg": block-Jacobi preconditioned CG, warm-started from the
+    last rejected step. robust in {"none", "huber", "cauchy"} applies
+    that m-estimator (width robust_delta, whitened units) to the LOOP
+    factors by IRLS.
 
     Stopping rule (gtsam checkConvergence analog): an ACCEPTED step whose
     cost decrease is at most cost_rtol * max(cost, 1) ends the optimization
@@ -391,7 +403,8 @@ def optimize(
     """
     if solver not in ("banded", "direct", "cg"):
         raise ValueError(f"unknown pose-graph solver {solver!r}")
-    if solver == "banded" and not banded_exact(graph, band):
+    if solver == "banded" and _loop_span_violation(
+            graph.loop_i, graph.loop_j, graph.loop_mask, band) is not None:
         solver = "direct"
     n = poses0.shape[0]
     dtype, dev = poses0.dtype, poses0.device
@@ -597,3 +610,179 @@ def optimize_trajectory(
     graph = make_graph(relative_poses, cfg, loop_i=loop_i, loop_j=loop_j,
                        loop_meas=loop_meas, loop_mask=loop_mask)
     return optimize_with_config(poses0, graph, cfg)
+
+
+def optimize_sharded(
+    poses0: torch.Tensor,
+    graph: PoseGraph,
+    mesh,
+    axis: str = "dp",
+    max_iters: int = 50,
+    lambda_init: float = 1e-4,
+    lambda_up: float = 10.0,
+    lambda_down: float = 0.1,
+    cost_rtol: float = 1e-9,
+    band: int = 10,
+    robust: str = "none",
+    robust_delta: float = 1.0,
+) -> LMResult:
+    """Banded LM with the FACTOR axis sharded over `axis` of a rank mesh
+    (parallel/mesh.Mesh); the program of one rank, every rank returning the
+    same result.
+
+    Counterpart of the JAX package's optimize_sharded. Poses replicate.
+    The between and loop factor axes are padded to multiples of the axis
+    size with masked factors (zero residual and Jacobian blocks, so exact
+    no-ops), and each rank linearizes its contiguous shard and scatters it
+    through _banded_scatter, the helper of the single-device banded solve,
+    into a local gradient and local super-block (A, O). One psum an LM
+    iteration combines (A, O, g, cost), packed in one flat buffer; only
+    then are the prior, the damping lam I and the padding identity added,
+    so each counts once. The SPIKE solve and the accept and damping logic
+    run on every rank on the same summed bytes, so their control flow
+    cannot diverge; one more psum an iteration sums the trial cost.
+    Results match optimize(solver="banded") up to the reassociation of the
+    sums (within the shard, then across ranks); the iteration count can
+    differ by one where that moves the step at which the relative decrease
+    crosses cost_rtol.
+
+    Banded only: a live loop wider than `band`, or reversed, raises (the
+    direct solver's Woodbury panel is not sharded).
+    """
+    bad = _loop_span_violation(graph.loop_i, graph.loop_j, graph.loop_mask,
+                               band)
+    if bad is not None:
+        raise ValueError(
+            f"optimize_sharded is banded-only: loop spans must lie in "
+            f"[0, band={band}], got [{bad[0]}, {bad[1]}] — use the "
+            "single-device solver='direct' path for wide/reversed arcs")
+    from ..parallel.mesh import psum
+
+    n = poses0.shape[0]
+    dtype, dev = poses0.dtype, poses0.device
+    D, r = mesh.size(axis), mesh.index(axis)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    def pad_factors(fi, fj, meas, mask, count):
+        """Factor arrays padded to `count` with masked identity factors
+        on pose 0, then this rank's contiguous shard."""
+        k = count - fi.shape[0]
+        fi = torch.cat([fi, torch.zeros(k, **i64)])
+        fj = torch.cat([fj, torch.zeros(k, **i64)])
+        meas = torch.cat([meas, eye3.expand(k, 3, 3)])
+        mask = torch.cat([mask, torch.zeros(k, dtype=torch.bool,
+                                            device=dev)])
+        b = count // D
+        sl = slice(r * b, (r + 1) * b)
+        return fi[sl], fj[sl], meas[sl], mask[sl].to(dtype)
+
+    Bf = graph.between_meas.shape[0]
+    Bp = max(-(-Bf // D) * D, D)
+    bfi, bfj, bmeas, bw = pad_factors(
+        torch.arange(Bf, **i64), torch.arange(1, Bf + 1, **i64),
+        graph.between_meas, torch.ones(Bf, dtype=torch.bool, device=dev), Bp)
+    Lf = graph.loop_i.shape[0]
+    Lp = max(-(-max(Lf, 1) // D) * D, D)
+    lfi, lfj, lmeas, lw = pad_factors(graph.loop_i, graph.loop_j,
+                                      graph.loop_meas, graph.loop_mask, Lp)
+
+    G = band
+    n_sup = -(-n // G)
+    n_padded = n_sup * G
+    none = torch.zeros(0, **i64)
+    # the damping template: eye3 at every live pose's diagonal block
+    eye_live, _ = _banded_scatter(n, G, eye3.expand(n, 3, 3), none, none,
+                                  eye3.new_zeros((0, 3, 3)))
+    # padded-tail poses: identity diagonal, zero coupling, zero rhs
+    eye_pad = torch.zeros_like(eye_live)
+    for p in range(n, n_padded):
+        o = 3 * (p % G)
+        eye_pad[p // G, o:o + 3, o:o + 3] = eye3
+    inv_btw = 1.0 / graph.between_sigmas
+    inv_loop = 1.0 / graph.loop_sigmas
+    inv_prior = 1.0 / graph.prior_sigmas
+    T_prior_inv = se2.inverse_T(se2.T_from_pose(graph.prior_pose))
+    jtj = lambda Ja, Jb: torch.einsum("bij,bik->bjk", Ja, Jb)  # noqa: E731
+    jtr = lambda J, r_: torch.einsum("bij,bi->bj", J, r_)  # noqa: E731
+
+    def prior_residual(p):
+        return se2.log_se2(T_prior_inv @ se2.T_from_pose(p)) * inv_prior
+
+    def loop_blocks(rl, Jli=None, Jlj=None):
+        """Robust reweight and loop cost of the (masked) loop residuals."""
+        if robust == "none":
+            return rl, Jli, Jlj, 0.5 * torch.sum(rl * rl)
+        w, rho = _robust_w_rho(torch.sum(rl * rl, dim=1), robust,
+                               robust_delta)
+        sw = torch.sqrt(w)[:, None]
+        if Jli is not None:
+            Jli = Jli * sw[..., None]
+            Jlj = Jlj * sw[..., None]
+        return rl * sw, Jli, Jlj, torch.sum(rho)
+
+    def cost_at(x):
+        rb = _factor_residual(x[bfi], x[bfj], bmeas, inv_btw) * bw[:, None]
+        rl = _factor_residual(x[lfi], x[lfj], lmeas, inv_loop) * lw[:, None]
+        cost_loc = 0.5 * torch.sum(rb * rb) + loop_blocks(rl)[3]
+        rp = prior_residual(x[0])
+        return psum(cost_loc, mesh, axis) + 0.5 * torch.dot(rp, rp)
+
+    def linearize(x):
+        rb, Jbi, Jbj = _factor_r_and_J(x[bfi], x[bfj], bmeas, inv_btw)
+        rb, Jbi, Jbj = (rb * bw[:, None], Jbi * bw[:, None, None],
+                        Jbj * bw[:, None, None])
+        rl, Jli, Jlj = _factor_r_and_J(x[lfi], x[lfj], lmeas, inv_loop)
+        rl, Jli, Jlj = (rl * lw[:, None], Jli * lw[:, None, None],
+                        Jlj * lw[:, None, None])
+        rl, Jli, Jlj, loop_cost = loop_blocks(rl, Jli, Jlj)
+        cost_loc = 0.5 * torch.sum(rb * rb) + loop_cost
+        g = x.new_zeros((n, 3))
+        g.index_add_(0, bfi, jtr(Jbi, rb))
+        g.index_add_(0, bfj, jtr(Jbj, rb))
+        g.index_add_(0, lfi, jtr(Jli, rl))
+        g.index_add_(0, lfj, jtr(Jlj, rl))
+        Dg = x.new_zeros((n, 3, 3))
+        Dg.index_add_(0, bfi, jtj(Jbi, Jbi))
+        Dg.index_add_(0, bfj, jtj(Jbj, Jbj))
+        Dg.index_add_(0, lfi, jtj(Jli, Jli))
+        Dg.index_add_(0, lfj, jtj(Jlj, Jlj))
+        A, O = _banded_scatter(n, G, Dg, torch.cat([bfj, lfj]),
+                               torch.cat([bfi, lfi]),
+                               torch.cat([jtj(Jbj, Jbi), jtj(Jlj, Jli)]))
+        # the one fused collective of the iteration
+        flat = psum(torch.cat([A.reshape(-1), O.reshape(-1), g.reshape(-1),
+                               cost_loc.reshape(1)]), mesh, axis)
+        nA, nO = A.numel(), O.numel()
+        return (flat[:nA].reshape(A.shape),
+                flat[nA:nA + nO].reshape(O.shape),
+                flat[nA + nO:nA + nO + 3 * n].reshape(n, 3))
+
+    x = poses0
+    lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
+    cost = cost_at(x)
+    stalls = torch.zeros((), dtype=torch.int64, device=dev)
+    it = 0
+    while it < max_iters:
+        A, O, g = linearize(x)
+        rp = prior_residual(x[0])
+        Jp = jacfwd(prior_residual)(x[0])
+        g[0] += Jp.T @ rp
+        A = A + lam * eye_live + eye_pad
+        A[0, 0:3, 0:3] += Jp.T @ Jp
+        X = block_tridiag_solve(A, O[:n_sup - 1], _banded_rhs(g, n, G),
+                                q=32)
+        x_new = x + X.reshape(n_padded, 3)[:n]
+        cost_new = cost_at(x_new)
+        accept = cost_new < cost
+        x = torch.where(accept, x_new, x)
+        improved = (cost - cost_new) > cost_rtol * torch.clamp(cost, min=1.0)
+        lam = torch.where(accept, lam * lambda_down, lam * lambda_up)
+        stalls = torch.where(accept & improved, torch.zeros_like(stalls),
+                             stalls + 1)
+        done = (accept & ~improved) | (stalls >= 3) | (lam > 1e10)
+        cost = torch.where(accept, cost_new, cost)
+        it += 1
+        if bool(done):
+            break
+    return LMResult(poses=x, cost=cost, iterations=it, final_lambda=lam)

@@ -31,6 +31,26 @@ class ScanMatchResult(NamedTuple):
     iters: torch.Tensor  # (N-1,) ICP iterations per pair
 
 
+def pad_pairs(src, tgt, src_mask, tgt_mask, init_T, multiple: int):
+    """ICP pair batches padded to a multiple of `multiple` pairs. A padding
+    pair has one valid target point and no valid source point, so its
+    error is 0 < epsilon and it stops after one iteration."""
+    B = src.shape[0]
+    pad = (-B) % multiple
+    if not pad:
+        return src, tgt, src_mask, tgt_mask, init_T
+
+    def pad0(x):
+        return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+
+    src, tgt = pad0(src), pad0(tgt)
+    src_mask, tgt_mask = pad0(src_mask), pad0(tgt_mask)
+    tgt_mask[B:, 0] = True
+    eye = torch.eye(4, dtype=init_T.dtype, device=init_T.device)
+    return src, tgt, src_mask, tgt_mask, torch.cat([init_T,
+                                                    eye.expand(pad, 4, 4)])
+
+
 def icp_all_pairs(
     src: torch.Tensor,
     tgt: torch.Tensor,
@@ -47,25 +67,17 @@ def icp_all_pairs(
 ):
     """Batched planar ICP over B pairs in chunks of chunk_size.
 
-    Inputs are padded to whole chunks; padding pairs get one valid target
-    point and no valid source point, so their error is 0 < epsilon and they
-    stop after one iteration. trim_fraction and metric pass through to
-    ops/icp.run_icp_batch; a pair's result does not depend on the chunk it
-    shares. Returns (T (B, 4, 4), errors (B,), iters (B,)).
+    Inputs are padded to whole chunks (pad_pairs). trim_fraction and
+    metric pass through to ops/icp.run_icp_batch; a pair's result does not
+    depend on the chunk it shares. Returns (T (B, 4, 4), errors (B,),
+    iters (B,)).
     """
     B = src.shape[0]
     C = min(chunk_size, B)
-    pad = -(-B // C) * C - B
-    if pad:
-        def pad0(x):
-            return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
-        src, tgt = pad0(src), pad0(tgt)
-        src_mask, tgt_mask = pad0(src_mask), pad0(tgt_mask)
-        tgt_mask[B:, 0] = True
-        eye = torch.eye(4, dtype=init_T.dtype, device=init_T.device)
-        init_T = torch.cat([init_T, eye.expand(pad, 4, 4)])
+    src, tgt, src_mask, tgt_mask, init_T = pad_pairs(
+        src, tgt, src_mask, tgt_mask, init_T, C)
     Ts, errs, its = [], [], []
-    for c0 in range(0, B + pad, C):
+    for c0 in range(0, src.shape[0], C):
         c1 = c0 + C
         res = icp_ops.run_icp_batch(
             src[c0:c1], tgt[c0:c1], src_mask[c0:c1], tgt_mask[c0:c1],

@@ -80,3 +80,13 @@ def carry_pf_state(state, generator: torch.Generator, device="cpu"):
     if "logodds" in fields:
         return PFSlamState(generator=generator, **arrays)
     return PFState(generator=generator, **arrays)
+
+
+def carry_clamp_affine(f, device="cpu"):
+    """A clamp-affine triple (a, lo, hi) of numpy arrays (the JAX
+    package's ClampAffine through np.asarray, or any 3-tuple) as the
+    port's ops/clamp_affine.ClampAffine on `device`, dtypes kept."""
+    from ..ops.clamp_affine import ClampAffine
+
+    a, lo, hi = (from_numpy(np.asarray(v), device) for v in f)
+    return ClampAffine(a=a, lo=lo, hi=hi)

@@ -93,6 +93,35 @@ def test_probe_modules_import_without_jax():
     assert out.stdout.strip() == "[]"
 
 
+_IMPORT_PARALLEL = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import lidar_slam_tpu_torch.ops.clamp_affine  # noqa: F401
+import lidar_slam_tpu_torch.parallel.dryrun  # noqa: F401
+import lidar_slam_tpu_torch.parallel.launch  # noqa: F401
+import lidar_slam_tpu_torch.parallel.mesh  # noqa: F401
+import lidar_slam_tpu_torch.parallel.sharding  # noqa: F401
+import lidar_slam_tpu_torch.parallel.superstep  # noqa: F401
+import lidar_slam_tpu_torch.tools.multichip_scaling  # noqa: F401
+import multiprocessing
+import torch.distributed as dist
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "lidar_slam_tpu")),
+      dist.is_initialized(), len(multiprocessing.active_children()))
+"""
+
+
+def test_parallel_modules_import_without_jax():
+    """The multi-rank layer imports no JAX, and importing it starts no
+    process group and no process."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PARALLEL, ROOT],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False 0"
+
+
 def test_library_path_hashes_every_csrc_file(tmp_path, monkeypatch):
     """An added or edited header (.cuh) changes the library name, so a
     stale build is never reused; the nvcc sources stay the .cu files."""
