@@ -21,6 +21,7 @@ import torch
 from ..config import MapConfig
 from ..models.occupancy import (build_logodds_scatter, scan_logodds_cells,
                                 scatter_scan_)
+from ..utils import tracing
 from . import build
 
 OWNER_SIDE = 16  # cells a side of raywalk_build's owners (the kernel's RB_SUB)
@@ -98,6 +99,7 @@ def raywalk_bins(ends: torch.Tensor, masks: torch.Tensor, cfg: MapConfig,
     _RAYWALK_BIN(index, *args, table.data_ptr(), None)  # count
     counts = table.view(-1)
     total = int(counts.sum(dtype=torch.int64))  # a build's one host sync
+    tracing.count("host.syncs")
     if total > INT32_MAX:
         raise ValueError(f"{total} ray-owner crossings: list positions "
                          f"must fit in int32")

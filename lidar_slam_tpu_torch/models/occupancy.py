@@ -31,6 +31,7 @@ import torch
 
 from ..config import LidarConfig, MapConfig
 from ..ops.bresenham import bresenham_fixed
+from ..utils import tracing
 from ..utils.precision import in_float64
 
 
@@ -70,9 +71,11 @@ def adaptive_ray_cells(points: torch.Tensor, masks: torch.Tensor,
     rounded up to a multiple of 64 and capped by max_ray_cells. Exact: a
     ray's cell count is <= ceil((|p| + |p_rl|)/res) + 1."""
     m = masks.bool()
+    tracing.count("host.syncs")
     if not bool(m.any()):
         return 64
     n2 = (points[..., 0] ** 2 + points[..., 1] ** 2)[m].max()
+    tracing.count("host.syncs", 2)  # indexing by the mask, then n2
     max_norm = float(np.sqrt(float(n2)))
     k = int(math.ceil((max_norm + 0.28) / cfg.resolution)) + 8
     k64 = int(-(-k // 64) * 64)

@@ -37,7 +37,7 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import icp as icp_ops
-from ..utils import interop, se2
+from ..utils import interop, se2, tracing
 from . import occupancy, odometry, pose_graph
 from .slam import (compute_loop_closures, loop_closure_candidates,
                    resolve_device, revisit_closures)
@@ -103,6 +103,7 @@ def init_state(first_points, first_mask, cfg: SlamConfig = SlamConfig(),
     )
 
 
+@tracing.spanned("online.step")
 def online_step(state: OnlineState, counts, gyro, points, mask,
                 cfg: SlamConfig = SlamConfig(),
                 K: int | None = None) -> OnlineState:
@@ -147,16 +148,19 @@ def online_step(state: OnlineState, counts, gyro, points, mask,
     # step COASTS on the odometry increment and does not paint the map. A
     # host read of `lost` stands in for the JAX package's lax.cond; with
     # the default infinite threshold the gate (and the read) is skipped.
-    lost = (math.isfinite(cfg.online.loss_rms_thresh)
-            and bool(rms > cfg.online.loss_rms_thresh))
+    lost = False
+    if math.isfinite(cfg.online.loss_rms_thresh):
+        tracing.count("host.syncs")
+        lost = bool(rms > cfg.online.loss_rms_thresh)
     if lost:
         rel2 = seed2
     pose_new = se2.pose_from_T(se2.T_from_pose(state.pose) @ rel2)
 
     # 3. causal map update, in place on the carried grid
     if not lost:
-        occupancy.update_map(state.logodds, pose_new, pts3[:, :2], mask,
-                             cfg.map, K)
+        with tracing.span("online.map_update"):
+            occupancy.update_map(state.logodds, pose_new, pts3[:, :2], mask,
+                                 cfg.map, K)
 
     # ring buffers: slot s % n_max holds step s
     step_new = state.step + 1

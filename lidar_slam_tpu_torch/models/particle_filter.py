@@ -38,6 +38,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import MapConfig
+from ..utils import tracing
 from ..utils.precision import in_float64
 from . import occupancy
 from .odometry import _sinc_half, v_from_encoder
@@ -205,6 +206,7 @@ def init_pf_state(cfg: PFConfig = PFConfig(), x0=None,
                    generator=_generator(dev, generator, seed))
 
 
+@tracing.spanned("pf.step")
 def pf_step(state: PFState, v_t, w_t, pts, mask, im, map_cfg: MapConfig,
             cfg: PFConfig = PFConfig(), score_fn=None, noise=None):
     """One streaming filter step (the serving analog of online.online_step).
@@ -227,12 +229,14 @@ def pf_step(state: PFState, v_t, w_t, pts, mask, im, map_cfg: MapConfig,
         noise = _draw_noise(gen, cfg.n_particles, dev)
     eps_v, eps_w, u = noise
     particles = _predict_particles(particles, v_t, w_t, eps_v, eps_w, cfg)
-    if score_fn is None:
-        score = _score_particles(particles, pts, mask, im, map_cfg)
-    else:
-        score = score_fn(particles, pts, mask, im)
-    particles, logw, est, neff, do_rs = _weigh_and_resample(
-        particles, logw, score, cfg, u)
+    with tracing.span("pf.score"):
+        if score_fn is None:
+            score = _score_particles(particles, pts, mask, im, map_cfg)
+        else:
+            score = score_fn(particles, pts, mask, im)
+    with tracing.span("pf.weigh_resample"):
+        particles, logw, est, neff, do_rs = _weigh_and_resample(
+            particles, logw, score, cfg, u)
     return PFState(particles, logw, gen), (est, neff, do_rs)
 
 

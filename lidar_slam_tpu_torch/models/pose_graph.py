@@ -29,7 +29,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..config import PoseGraphConfig
-from ..utils import se2
+from ..utils import se2, tracing
 
 
 class PoseGraph(NamedTuple):
@@ -305,9 +305,11 @@ def _loop_span_violation(loop_i: torch.Tensor, loop_j: torch.Tensor,
     if loop_i.shape[0] == 0:
         return None
     span = (loop_j - loop_i)[loop_mask.bool()]
+    tracing.count("host.syncs")  # indexing by the mask reads its count
     if span.numel() == 0:
         return None
     lo, hi = int(span.min()), int(span.max())
+    tracing.count("host.syncs", 2)
     return (lo, hi) if hi > band or lo < 0 else None
 
 
@@ -356,7 +358,10 @@ def cg_solve(matvec, b: torch.Tensor, x0: torch.Tensor, precond,
     p = z = precond(r)
     gamma = _vdot(r, z)
     x, k = x0, 0
-    while k < maxiter and bool(_vdot(r, r) > atol2):
+    while k < maxiter:
+        tracing.count("host.syncs")
+        if not bool(_vdot(r, r) > atol2):
+            break
         Ap = matvec(p)
         alpha = gamma / _vdot(p, Ap)
         x = x + alpha * p
@@ -560,12 +565,13 @@ def optimize(
     it = 0
     while it < max_iters:
         J, g = linearize(x)
-        if solver == "banded":
-            dx = banded_solve(J, lam, g)
-        elif solver == "direct":
-            dx = direct_solve(J, lam, g)
-        else:
-            dx = cg_step(J, lam, g, dx_prev)
+        with tracing.span("pose_graph.solve"):
+            if solver == "banded":
+                dx = banded_solve(J, lam, g)
+            elif solver == "direct":
+                dx = direct_solve(J, lam, g)
+            else:
+                dx = cg_step(J, lam, g, dx_prev)
         x_new = x + dx
         cost_new = cost_at(x_new)
         accept = cost_new < cost
@@ -579,6 +585,7 @@ def optimize(
         # the CG warm start resets on an accepted step
         dx_prev = torch.where(accept, torch.zeros_like(dx), dx)
         it += 1
+        tracing.count("host.syncs")
         if bool(done):
             break
     return LMResult(poses=x, cost=cost, iterations=it, final_lambda=lam)

@@ -15,14 +15,14 @@ verification, and added to the graph solved by the direct solver.
 
 The stages run on the device given to run_slam. Each stage ends by copying
 its result to the host (SlamResult holds numpy arrays, like the JAX
-package's), so the wall time of every stage is recorded in
-SlamResult.stage_seconds at no extra synchronisation.
+package's), so the host seconds of its span (utils/tracing: "slam.odometry",
+"slam.scan_matching", ...) are its wall time at no extra synchronisation;
+SlamResult.stage_seconds holds them whether tracing is on or off.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -32,7 +32,7 @@ from ..config import SlamConfig
 from ..ops import filters
 from ..ops import icp as icp_ops
 from ..ops import scan as scan_ops
-from ..utils import se2
+from ..utils import se2, tracing
 from . import occupancy, odometry, pose_graph, scan_matching
 
 
@@ -414,6 +414,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """t as a numpy array on the host: one read back (host.syncs)."""
+    tracing.count("host.syncs")
+    return t.cpu().numpy()
+
+
+@tracing.spanned("slam.run")
 def run_slam(
     counts,
     gyro,
@@ -445,88 +452,83 @@ def run_slam(
                          "scan_matching, gtsam")
     dev = resolve_device(device)
     stage = {}
-    t0 = time.perf_counter()
+    with tracing.span("slam.odometry", stage):
+        counts, gyro, ranges = (torch.as_tensor(a, dtype=dtype, device=dev)
+                                for a in (counts, gyro, ranges))
+        points, masks = scan_ops.scans_to_points(ranges, range_min,
+                                                 range_max, cfg.lidar)
+        max_distance, max_yaw_deg = odometry.max_step_gates(counts, gyro,
+                                                            cfg.robot.dt)
+        poses_odom, rel_odom = odometry.poses_from_odometry(
+            counts, gyro, dt=cfg.robot.dt, return_relative_poses=True)
+        result = SlamResult(poses_odom=_to_host(poses_odom),
+                            relative_poses_odom=_to_host(rel_odom),
+                            poses=_to_host(poses_odom))
+        final_poses = poses_odom
 
-    counts, gyro, ranges = (torch.as_tensor(a, dtype=dtype, device=dev)
-                            for a in (counts, gyro, ranges))
-    points, masks = scan_ops.scans_to_points(ranges, range_min, range_max,
-                                             cfg.lidar)
     if filter_lidar:
-        t_f = time.perf_counter()
-        masks = filter_scans(points, masks, cfg)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        stage["filter"] = time.perf_counter() - t_f
-        t0 += stage["filter"]
-    max_distance, max_yaw_deg = odometry.max_step_gates(counts, gyro,
-                                                        cfg.robot.dt)
-    poses_odom, rel_odom = odometry.poses_from_odometry(
-        counts, gyro, dt=cfg.robot.dt, return_relative_poses=True)
-    result = SlamResult(poses_odom=poses_odom.cpu().numpy(),
-                        relative_poses_odom=rel_odom.cpu().numpy(),
-                        poses=poses_odom.cpu().numpy())
-    final_poses = poses_odom
-    t1 = time.perf_counter()
-    stage["odometry"] = t1 - t0
+        with tracing.span("slam.filter", stage):
+            masks = filter_scans(points, masks, cfg)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     if mode in ("scan_matching", "gtsam"):
-        sm = scan_matching.poses_from_scan_matching(
-            poses_odom, points, masks, cfg.icp, chunk_size=chunk_size)
-        result.poses_scan_matching = sm.poses.cpu().numpy()
-        result.relative_poses_scan_matching = sm.relative_poses.cpu().numpy()
-        result.scan_matching_iters = sm.iters.cpu().numpy()
-        final_poses = sm.poses
-        t2 = time.perf_counter()
-        stage["scan_matching"] = t2 - t1
-        t1 = t2
+        with tracing.span("slam.scan_matching", stage):
+            sm = scan_matching.poses_from_scan_matching(
+                poses_odom, points, masks, cfg.icp, chunk_size=chunk_size)
+            result.poses_scan_matching = _to_host(sm.poses)
+            result.relative_poses_scan_matching = _to_host(sm.relative_poses)
+            result.scan_matching_iters = _to_host(sm.iters)
+            final_poses = sm.poses
 
     if mode == "gtsam":
-        pts3 = icp_ops.lift_to_3d(points)
-        cand = loop_closure_candidates(int(final_poses.shape[0]),
-                                       fixed_interval)
-        loop_T, accept, _, loop_iters = compute_loop_closures(
-            pts3, masks, cand, fixed_interval, float(max_distance),
-            float(max_yaw_deg), chunk_size=chunk_size)
-        result.loop_accept = accept.cpu().numpy()
-        result.loop_iters = loop_iters.cpu().numpy()
-        t2 = time.perf_counter()
-        stage["loop_closures"] = t2 - t1
-        # the band must follow the actual loop span (fixed_interval), and
-        # the fixed loops' measurement is the UNINVERTED ICP output
-        # T_j^-1 T_i, as the reference feeds it to BetweenFactorPose2(i, j,
-        # .) (main.py:171; harmless under its near-identity gates)
-        pg_cfg = dataclasses.replace(cfg.pose_graph,
-                                     fixed_interval=fixed_interval)
-        li = torch.as_tensor(cand, dtype=torch.int64, device=dev)
-        lj = li + fixed_interval
+        with tracing.span("slam.loop_closures", stage):
+            pts3 = icp_ops.lift_to_3d(points)
+            cand = loop_closure_candidates(int(final_poses.shape[0]),
+                                           fixed_interval)
+            gates = float(max_distance), float(max_yaw_deg)
+            tracing.count("host.syncs", 2)
+            loop_T, accept, _, loop_iters = compute_loop_closures(
+                pts3, masks, cand, fixed_interval, *gates,
+                chunk_size=chunk_size)
+            result.loop_accept = _to_host(accept)
+            result.loop_iters = _to_host(loop_iters)
+            # the band must follow the actual loop span (fixed_interval),
+            # and the fixed loops' measurement is the UNINVERTED ICP output
+            # T_j^-1 T_i, as the reference feeds it to
+            # BetweenFactorPose2(i, j, .) (main.py:171; harmless under its
+            # near-identity gates)
+            pg_cfg = dataclasses.replace(cfg.pose_graph,
+                                         fixed_interval=fixed_interval)
+            li = torch.as_tensor(cand, dtype=torch.int64, device=dev)
+            lj = li + fixed_interval
         if pg_cfg.loop_proposer != "fixed":
-            rv = revisit_closures(pts3, masks, final_poses, pg_cfg, ranges,
-                                  range_min, range_max,
-                                  chunk_size=chunk_size)
-            result.revisit_proposed = rv.proposed
-            result.revisit_pairs = torch.stack(
-                [rv.loop_i, rv.loop_j], dim=-1).cpu().numpy()
-            if rv.loop_i.numel():
-                li, lj, loop_T, accept = rv.append_to(li, lj, loop_T, accept)
-                # revisit spans exceed any fixed band
-                pg_cfg = dataclasses.replace(pg_cfg, solver="direct")
-            t3 = time.perf_counter()
-            stage["revisit"] = t3 - t2
-            t2 = t3
-        result.n_loop_closures = int(accept.sum())
-        opt = pose_graph.optimize_trajectory(
-            final_poses, sm.relative_poses, li, lj, loop_T, accept, pg_cfg)
-        result.poses_optimized = opt.poses.cpu().numpy()
-        result.lm_iterations = opt.iterations
-        final_poses = opt.poses
-        t3 = time.perf_counter()
-        stage["pose_graph"] = t3 - t2
-        t1 = t3
+            with tracing.span("slam.revisit", stage):
+                rv = revisit_closures(pts3, masks, final_poses, pg_cfg,
+                                      ranges, range_min, range_max,
+                                      chunk_size=chunk_size)
+                result.revisit_proposed = rv.proposed
+                result.revisit_pairs = torch.stack(
+                    [rv.loop_i, rv.loop_j], dim=-1).cpu().numpy()
+                if rv.loop_i.numel():
+                    li, lj, loop_T, accept = rv.append_to(li, lj, loop_T,
+                                                          accept)
+                    # revisit spans exceed any fixed band
+                    pg_cfg = dataclasses.replace(pg_cfg, solver="direct")
+        with tracing.span("slam.pose_graph", stage):
+            tracing.count("host.syncs")
+            result.n_loop_closures = int(accept.sum())
+            opt = pose_graph.optimize_trajectory(
+                final_poses, sm.relative_poses, li, lj, loop_T, accept,
+                pg_cfg)
+            result.poses_optimized = _to_host(opt.poses)
+            result.lm_iterations = opt.iterations
+            final_poses = opt.poses
 
-    result.poses = final_poses.cpu().numpy()
+    result.poses = _to_host(final_poses)
     if build_map:
-        _build_map(result, final_poses, points, masks, cfg, range_max)
-        stage["map_build"] = time.perf_counter() - t1
+        with tracing.span("slam.map_build", stage):
+            _build_map(result, final_poses, points, masks, cfg, range_max)
     result.stage_seconds = stage
     return result
 
@@ -538,8 +540,8 @@ def _build_map(result: SlamResult, poses, points, masks, cfg: SlamConfig,
     K = occupancy.adaptive_ray_cells(points, masks, cfg.map, float(range_max))
     logodds = occupancy.build_logodds(poses, points, masks, cfg.map, K)
     result.ray_cells = K
-    result.logodds = logodds.cpu().numpy()
-    result.grid_map = occupancy.finalize_grid(logodds).cpu().numpy()
+    result.logodds = _to_host(logodds)
+    result.grid_map = _to_host(occupancy.finalize_grid(logodds))
 
 
 def resume_from_poses(
@@ -561,20 +563,22 @@ def resume_from_poses(
     the scan filters under filter_lidar), in float32 on `device`.
     """
     dev = resolve_device(device)
-    t0 = time.perf_counter()
-    poses, ranges = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-                     for a in (poses, ranges))
-    points, masks = scan_ops.scans_to_points(ranges, range_min, range_max,
-                                             cfg.lidar)
-    if filter_lidar:
-        masks = filter_scans(points, masks, cfg)
-    host = poses.cpu().numpy()
-    result = SlamResult(
-        poses_odom=host,
-        relative_poses_odom=se2.get_relative_pose(poses[:-1],
-                                                  poses[1:]).cpu().numpy(),
-        poses=host)
+    stage = {}
+    with tracing.span("slam.map_build", stage):
+        poses, ranges = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                         for a in (poses, ranges))
+        points, masks = scan_ops.scans_to_points(ranges, range_min,
+                                                 range_max, cfg.lidar)
+        if filter_lidar:
+            masks = filter_scans(points, masks, cfg)
+        host = _to_host(poses)
+        result = SlamResult(
+            poses_odom=host,
+            relative_poses_odom=_to_host(se2.get_relative_pose(poses[:-1],
+                                                               poses[1:])),
+            poses=host)
+        if build_map:
+            _build_map(result, poses, points, masks, cfg, range_max)
     if build_map:
-        _build_map(result, poses, points, masks, cfg, range_max)
-        result.stage_seconds = {"map_build": time.perf_counter() - t0}
+        result.stage_seconds = stage
     return result

@@ -24,7 +24,8 @@ the whole SLAM pipeline) or the 3-D SVD Kabsch (planar=False, the ICP
 warm-up of models/warmup.py); PLICP is planar only.
 
 The JAX package runs the loop as one lax.while_loop on device; here it is a
-Python loop that reads the batch's done flag once per iteration. The
+Python loop that reads the batch's done flag after each iteration (the
+"icp.batch" span; utils/tracing counts the trips as icp.sweeps). The
 correspondence step is the Hopper NN kernel for CUDA tensors
 (kernels/nn.py) and its plain version for CPU tensors; nn_chunk bounds the
 plain version's (B, N, M) distances on the CPU (ops/nn.py
@@ -38,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.nn import nn_argmin
+from ..utils import tracing
 from .kabsch import (fit_point_to_line_planar, kabsch, kabsch_planar,
                      scan_normals_planar)
 from .nn import gather_points, nearest_neighbors_chunked
@@ -224,10 +226,16 @@ def run_icp_batch(
     as icp_iteration.
     """
     c = initial_icp_carry(init_T, src.shape[1], src.dtype)
-    while not bool(c.done.all()):
-        c = _icp_body(src, tgt, src_mask, tgt_mask, c, epsilon, max_iters,
-                      stopping_thresh, normalize_error, trim_fraction,
-                      metric, planar, nn_chunk)
+    # no pair starts done: the batch's done flag is read after each trip
+    done = src.shape[0] == 0
+    with tracing.span("icp.batch"):
+        while not done:
+            c = _icp_body(src, tgt, src_mask, tgt_mask, c, epsilon,
+                          max_iters, stopping_thresh, normalize_error,
+                          trim_fraction, metric, planar, nn_chunk)
+            done = bool(c.done.all())
+            tracing.count("icp.sweeps")
+            tracing.count("host.syncs")
     return IcpResult(T=c.T, error=c.err, iters=c.k, correspondences=c.idx)
 
 

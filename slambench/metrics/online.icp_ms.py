@@ -1,0 +1,16 @@
+"""Host milliseconds a step in the scan match: the program's icp.batch
+spans under online.step spans over the traced steps with tracing on
+(spans.passes, pass (c)), over the steps."""
+
+import spans
+
+STEP = "online.step"
+
+
+def read(run):
+    out = (spans.passes(run) if run.work.get("runner") == "stream_slam"
+           else None)
+    if out is None or not spans.roots(out, STEP):
+        return None
+    return 1e3 * spans.seconds(out, "icp.batch", STEP) / spans.roots(out,
+                                                                     STEP)
