@@ -12,7 +12,11 @@ first failure and catches nothing):
   3. nn_argmin kernel on one real ICP chunk (64 consecutive scan pairs
      of the seed-20 dataset): indices equal to nn_argmin_rounded (its
      arithmetic op by op in PyTorch) and matched points bit-equal, and
-     within the index-flip gate of its plain version;
+     within the index-flip gate of its plain version; icp_sweep_tail
+     (K5) on the same chunk against its plain version from one carry,
+     three sweeps a mode in lockstep, the error normalized and not (done,
+     k and idx equal, T within 1e-5), then timed alone, beside its plain
+     version, and in a whole sweep fused (K4 + K5) and op by op;
   4. raywalk_build kernel against its plain version (the scatter path, run
      on CPU copies of the same ray end cells) on 32 scans: bit-exact; its
      binning kernel's per-owner lists equal to the plain lists;
@@ -37,7 +41,7 @@ first failure and catches nothing):
      seed-21 log replayed at their odometry poses, clipped, on a GPU grid
      and on a CPU copy, and one unclipped scan_delta: bit-exact; per-scan
      times of the kernel and the plain scatter on the GPU; nn_argmin at
-     the online path's B = 1, gated as in [3];
+     the online path's B = 1, gated as in [3], and K5 there as in [3];
   8. the online (serving) path at dataset-20 width: init_state and
      online_step over the whole 4,956-step log (n_max 8,192, refine with
      gated fixed loops every 1,000 steps), after a 50-step warm-up, with
@@ -64,7 +68,8 @@ first failure and catches nothing):
  11. device time a launch from torch.profiler (self CUDA time over the
      launches) beside the CUDA-event time, for raywalk_scan over 100
      clipped scans and nn_argmin over 200 launches at B = 1 and 50 at 64
-     pairs; raywalk_build's binning and walk kernels over three main-path
+     pairs, icp_sweep_tail likewise; raywalk_build's binning and walk
+     kernels over three main-path
      builds, and the walk's ns a crossing of the hottest owner; P1-P6 over
      100 launches each on the JAX tool's inputs (P1-P5 also at [10]'s
      second cases); the host's side of a P1-P6 call and of nn_argmin at
@@ -157,7 +162,8 @@ first failure and catches nothing):
      rank.
 
 The last three lines are the card's `name, power.limit`, a JSON object with
-each kernel's launch count on its path ([5] and [8] for K1, K2 and K4, and
+each kernel's launch count on its path ([5] and [8] for K1, K2, K4 and K5
+(K5's equal to K4's there and in [15] (c), and 0 in [16] (a)), and
 [12]'s and [14]'s revisit runs apart for K1 and K4, [15]'s runs apart for
 K1 (a, c), K2 (b, d) and K4 (c, d); the tools' run in [10]
 for P1-P9), its error against its plain version, its,
@@ -166,7 +172,8 @@ larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 the H100's published HBM and FP32 rates; nn_argmin also at B = 1, and
 every kernel with its profiler device time; nn_argmin also on [15] (c)'s
 polish inputs and on [16] (c)'s warm-up inputs, with [16]'s launches;
-K2 and K4 also with [17]'s launches over every rank;
+K2, K4 and K5 also with [17]'s launches over every rank; icp_sweep_tail
+also at B = 1 and on [15] (c)'s polish inputs, with whole sweeps' times;
 P1-P6 and nn_argmin at B = 1
 with their host split; P9 also with the probe tool's slopes), and
 {"ok": true, "device": ...}.
@@ -190,6 +197,14 @@ REL_TOL = 2e-4  # online vs offline relative poses (tests/test_online.py:47)
 REL_MAX_SHARE = 0.01  # share of steps allowed past REL_TOL (NN near-ties)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3, published
 FP32_OPS_S = 67e12  # H100 SXM FP32 outside the tensor cores, published
+# icp_sweep_tail (K5) against its plain version from one carry: the card
+# tests' bound of the fused sweep against the op-by-op sweep (m, rad), and
+# the error's relative gap (float64 sums on both sides)
+K5_POSE_TOL, K5_ERR_RTOL = 1e-5, 1e-5
+K5_SWEEPS = 3  # lockstep sweeps a case: the first skips the delta rule
+# K5 a source point: src_t, matched, the mask, src and idx read, src_t and
+# idx written (csrc/icp.cu); about 20 float64 operations
+K5_BYTES, K5_OPS = 57, 20
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -344,6 +359,86 @@ def nn_check(s, t, tm, reps: int):
 
 
 NN_EXACT = "indices equal to nn_argmin_rounded, matched bit-equal"
+
+
+def _pose_gap(Ta, Tb):
+    """Largest translation (m) and yaw (rad) gap of two (B, 4, 4) batches."""
+    dt = float((Ta[:, :2, 3] - Tb[:, :2, 3]).abs().max())
+    yaw = [torch.atan2(T[:, 1, 0], T[:, 0, 0]) for T in (Ta, Tb)]
+    dr = torch.remainder(yaw[0] - yaw[1] + np.pi, 2 * np.pi) - np.pi
+    return dt, float(dr.abs().max())
+
+
+def k5_line(shape: str, r) -> str:
+    return (f"icp_sweep_tail, {shape}, {K5_SWEEPS} sweeps a mode against "
+            f"its plain version from one carry: done, k and idx equal, max "
+            f"T gap {r[0]:.3e} m, {r[1]:.3e} rad; kernel {r[2]:.4f} ms, "
+            f"plain {r[3]:.4f} ms; a sweep (_icp_body) fused {r[4]:.4f} ms, "
+            f"op by op {r[5]:.4f} ms; bound {r[6][0]:.5f} ms ({r[6][1]})")
+
+
+def k5_check(s, t, sm, tm, reps: int):
+    """icp_sweep_tail (K5) on (s, t, sm, tm) from the identity: against its
+    plain version (icp_sweep_tail_plain, on the card) from the same carry,
+    K5_SWEEPS sweeps in lockstep (each from K5's carry, so K4 sees one
+    input), the error normalized and not, under scan matching's stopping
+    rules: done, k and idx equal, T within K5_POSE_TOL, the error within
+    K5_ERR_RTOL; then timed on a carry that never stops (epsilon and the
+    threshold -1): K5 alone, its plain version, and a whole sweep through
+    ops/icp._icp_body fused (K4 + K5) and op by op. Returns (max T gap m,
+    rad; ms, plain ms, fused sweep ms, op-by-op sweep ms, the bound, and
+    the timed K5 call for the profiler)."""
+    from lidar_slam_tpu_torch.kernels.icp import (icp_sweep_tail,
+                                                  icp_sweep_tail_plain)
+    from lidar_slam_tpu_torch.kernels.nn import nn_argmin
+    from lidar_slam_tpu_torch.ops import icp as icp_ops
+
+    s, sm = s.contiguous(), sm.contiguous()
+    B, N, _ = s.shape
+    eye = torch.eye(4, device=s.device).expand(B, 4, 4)
+
+    def clone(c):
+        return c._replace(**{k: v.clone() for k, v in c._asdict().items()})
+
+    gap_t = gap_r = 0.0
+    for normalize in (False, True):
+        c = icp_ops.initial_icp_carry(eye, N, torch.float32, s)
+        for _ in range(K5_SWEEPS):
+            p = clone(c)
+            idx, matched = nn_argmin(c.src_t, t, tm)
+            icp_sweep_tail(s, matched, idx, sm, c, normalize, 1e-3, 2000,
+                           1e-4)
+            icp_sweep_tail_plain(s, matched, idx, sm, p, normalize, 1e-3,
+                                 2000, 1e-4)
+            torch.cuda.synchronize()
+            dt, dr = _pose_gap(c.T, p.T)
+            gap_t, gap_r = max(gap_t, dt), max(gap_r, dr)
+            if not (torch.equal(c.done, p.done) and torch.equal(c.k, p.k)
+                    and torch.equal(c.idx, p.idx)):
+                fail(f"icp_sweep_tail's done, k or idx differ from its "
+                     f"plain version at {B} x {N} (normalized {normalize})")
+            if dt > K5_POSE_TOL or dr > K5_POSE_TOL or not torch.allclose(
+                    c.err, p.err, rtol=K5_ERR_RTOL, atol=0):
+                fail(f"icp_sweep_tail's fit or error differs from its plain"
+                     f" version at {B} x {N}: {dt:.3e} m, {dr:.3e} rad")
+    never = (False, -1.0, 2 ** 30, -1.0)
+    c = icp_ops.initial_icp_carry(eye, N, torch.float32, s)
+    idx, matched = nn_argmin(c.src_t, t, tm)
+    p, f = clone(c), clone(c)
+    o = icp_ops.initial_icp_carry(eye, N, torch.float32)
+
+    def k5():
+        icp_sweep_tail(s, matched, idx, sm, c, *never)
+
+    ms, plain_ms, _ = turns(
+        lambda: icp_sweep_tail_plain(s, matched, idx, sm, p, *never), k5,
+        None, reps)
+    body = (never[1], never[2], never[3], never[0])
+    sweep_ms, op_ms, _ = turns(
+        lambda: icp_ops._icp_body(s, t, sm, tm, o, *body),
+        lambda: icp_ops._icp_body(s, t, sm, tm, f, *body), None, reps)
+    return (gap_t, gap_r, ms, plain_ms, sweep_ms, op_ms,
+            bound(K5_BYTES * B * N, K5_OPS * B * N), k5)
 
 
 def visits(ends, masks, cfg, K) -> int:
@@ -643,7 +738,8 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     statistical threshold within STAT_BAND_RTOL of the CPU's and its masks
     equal but for points whose range lies within that band of it (counted);
     poses finite; K1's map against the plain scatter on CPU copies of its
-    ray end cells, bit-exact. Returns the launch counts."""
+    ray end cells, bit-exact. Returns the launch counts (K5's too)."""
+    from lidar_slam_tpu_torch.kernels.icp import icp_sweep_tail
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
     from lidar_slam_tpu_torch.models import occupancy, slam
@@ -653,7 +749,7 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     slam.run_slam(*log21, mode="gtsam", filter_lidar=True, cfg=cfg,
                   device=dev)  # warm-up
     torch.cuda.synchronize()
-    nn_argmin.launches = 0
+    nn_argmin.launches = icp_sweep_tail.launches = 0
     raywalk_build.launches = 0
     t0 = time.perf_counter()
     res = slam.run_slam(*log21, mode="gtsam", filter_lidar=True, cfg=cfg,
@@ -661,6 +757,7 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {"nn_argmin": nn_argmin.launches,
+                "icp_sweep_tail": icp_sweep_tail.launches,
                 "raywalk_build": raywalk_build.launches}
     n_scans, n_rays = pts21.shape[:2]
     print(f"[12] filtered gtsam (--filter_lidar), {n_scans} scans x {n_rays} "
@@ -834,10 +931,12 @@ def revisit_phase(dev, cfg, log21, res5, pts21, masks21) -> dict:
     within rtol 1e-6); (e) a small
     revisit log on the card and on the CPU: the same kept revisit pairs,
     poses within 1e-3. Each run's K4 and K1 counters are reset just before
-    it. Returns K4's and K1's launches over the revisit runs of (a), (b)."""
+    it. Returns K4's, K5's and K1's launches over the revisit runs of (a),
+    (b)."""
     import dataclasses
 
     from lidar_slam_tpu_torch import sensors
+    from lidar_slam_tpu_torch.kernels.icp import icp_sweep_tail
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
     from lidar_slam_tpu_torch.models import occupancy, odometry, pose_graph
@@ -852,7 +951,7 @@ def revisit_phase(dev, cfg, log21, res5, pts21, masks21) -> dict:
 
     def run(tag, args, run_cfg, gt=None, build_map=True):
         torch.cuda.synchronize()
-        nn_argmin.launches = 0
+        nn_argmin.launches = icp_sweep_tail.launches = 0
         raywalk_build.launches = 0
         t0 = time.perf_counter()
         r = slam.run_slam(*args, mode="gtsam", cfg=run_cfg, device=dev,
@@ -860,6 +959,7 @@ def revisit_phase(dev, cfg, log21, res5, pts21, masks21) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"nn_argmin": nn_argmin.launches,
+                    "icp_sweep_tail": icp_sweep_tail.launches,
                     "raywalk_build": raywalk_build.launches}
         kept = 0 if r.revisit_pairs is None else len(r.revisit_pairs)
         ate = (None if gt is None
@@ -879,7 +979,7 @@ def revisit_phase(dev, cfg, log21, res5, pts21, masks21) -> dict:
             fail(f"[14] {tag}: a kernel was not launched: {launches}")
         return r, launches, kept, ate
 
-    launches_rv = {"nn_argmin": 0, "raywalk_build": 0}
+    launches_rv = {"nn_argmin": 0, "icp_sweep_tail": 0, "raywalk_build": 0}
     # (a) descriptor loops on the two-lap world
     d_a = io.synthetic_revisit_dataset(n_steps=REVISIT_STEPS, n_rays=1081,
                                        laps=2)
@@ -1054,7 +1154,9 @@ def pf_reloc_phase(dev, cfg) -> tuple:
     RELOC_ALGORITHM_MISSES), the refined pose within 1e-4 of the CPU's and
     5 cm and 0.03 rad of ground truth, elsewhere within SMALL_POSE_TOL of
     the CPU's (RELOC_REFINED_TOL says why); nn_argmin held to its plain
-    version on scan RELOC_NN_SCAN's polish inputs (8 x 1,081 x 4,096).
+    version on scan RELOC_NN_SCAN's polish inputs (8 x 1,081 x 4,096),
+    icp_sweep_tail (K5) to its plain version there (k5_check), and K5's
+    launches over the calls equal to K4's (every polish sweep fused).
     (d) the kidnapped-robot stream (utils/io.kidnap_log) with
     relocalize_and_reseed on the card and on the CPU: the loss gate at
     step 300 only, the recovery within 5 cm and 0.03 rad, card and CPU
@@ -1062,13 +1164,15 @@ def pf_reloc_phase(dev, cfg) -> tuple:
     and the CPU, each computing its own points, on one noise: points
     equal, tracks within 1e-4, resample flags equal, PF-SLAM maps within
     1e-4 with equal hit maps. Returns the launches of K1 in (a) and (c),
-    of K2 in (b) and (d), of K4 in (c) and (d), and nn_check's numbers on
-    the polish inputs."""
+    of K2 in (b) and (d), of K4 and K5 in (c) and (d), and nn_check's
+    numbers, k5_check's and K5's profiled device ms on the polish
+    inputs."""
     import dataclasses
     import math
 
     from lidar_slam_tpu_torch.config import MapConfig, OnlineConfig
     from lidar_slam_tpu_torch.config import SlamConfig
+    from lidar_slam_tpu_torch.kernels.icp import icp_sweep_tail
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.kernels.raywalk import (raywalk_build,
                                                       raywalk_scan)
@@ -1195,7 +1299,7 @@ def pf_reloc_phase(dev, cfg) -> tuple:
                           masks[RELOC_SCANS[0]], rcfg, center,
                           n_candidates=8)  # warm-up
     torch.cuda.synchronize()
-    nn_argmin.launches = 0
+    nn_argmin.launches = icp_sweep_tail.launches = 0
     results = []
     for name, lo, p_, m_, gt_, k, gated in cases:
         t0 = time.perf_counter()
@@ -1205,6 +1309,7 @@ def pf_reloc_phase(dev, cfg) -> tuple:
         results.append((name, lo, p_[k], m_[k], gt_[k], k, gated, g,
                         r.cpu(), float(e), time.perf_counter() - t0))
     launches["nn_argmin"] = nn_argmin.launches
+    launches["icp_sweep_tail"] = icp_sweep_tail.launches
     bad = []
     for name, _, _, _, gk, k, gated, g, r, e, sec in results:
         gp, r = g.pose.cpu().numpy(), r.numpy()
@@ -1263,8 +1368,8 @@ def pf_reloc_phase(dev, cfg) -> tuple:
     _, leaves = rl.relocalize(im, m, pts[k], masks[k], rcfg, center,
                               return_leaves=True)
     cand, _ = rl.top_candidates(leaves, angles, center, m, 8)
-    s_p, t_p, _, tm_p = rl.polish_inputs(lo_gt, m, pts[k], masks[k], cand,
-                                         rcfg)
+    s_p, t_p, sm_p, tm_p = rl.polish_inputs(lo_gt, m, pts[k], masks[k],
+                                            cand, rcfg)
     past = int(tm_p[:, NN_STAGE:].sum())
     nn_r = nn_check(s_p, t_p, tm_p, 20)
     print(f"[15] (c) nn_argmin on scan {k}'s polish inputs, "
@@ -1278,12 +1383,20 @@ def pf_reloc_phase(dev, cfg) -> tuple:
     if past == 0:
         fail("[15] (c) the polish's targets never reach nn_argmin's second "
              "stage")
+    k5_r = k5_check(s_p, t_p, sm_p, tm_p, 20)
+    dev_k5 = device_ms(k5_r[7], 20, "icp_sweep_tail_kernel")
+    shape = ' x '.join(map(str, (*s_p.shape[:2], t_p.shape[1])))
+    print(f"[15] (c) {k5_line(shape, k5_r)}; under torch.profiler "
+          f"{fmt(dev_k5, 5)}", flush=True)
     print(f"[15] (c) nn_argmin launches over the {len(results)} calls "
-          f"{launches['nn_argmin']}; refined-pose gate on "
+          f"{launches['nn_argmin']}, icp_sweep_tail "
+          f"{launches['icp_sweep_tail']}; refined-pose gate on "
           f"{[(r[5], r[0]) for r in results if r[6]]} "
           f"(the others miss in the JAX package too)", flush=True)
     if launches["nn_argmin"] == 0:
         fail("[15] (c) nn_argmin was not launched by the polish")
+    if launches["icp_sweep_tail"] != launches["nn_argmin"]:
+        fail("[15] (c) a polish sweep missed the fused path")
     if bad:
         fail(f"[15] (c) refined poses off ground truth for scans {bad}")
 
@@ -1317,10 +1430,13 @@ def pf_reloc_phase(dev, cfg) -> tuple:
 
     torch.cuda.synchronize()
     raywalk_scan.launches = nn_argmin.launches = 0
+    icp_sweep_tail.launches = 0
     track_g, fired_g, wall_g = kidnap_stream(dev)
     l_scan, l_nn = raywalk_scan.launches, nn_argmin.launches
+    l_k5 = icp_sweep_tail.launches
     launches["raywalk_scan"] += l_scan
     launches["nn_argmin"] += l_nn
+    launches["icp_sweep_tail"] += l_k5
     track_c, fired_c, wall_c = kidnap_stream("cpu")
     tk = 300
     rec = track_g[tk]
@@ -1333,7 +1449,8 @@ def pf_reloc_phase(dev, cfg) -> tuple:
           f"ground truth; final error "
           f"{float(np.hypot(*(track_g[-1, :2] - gt_k[-1, :2]))):.4f} m; card "
           f"{wall_g:.2f} s, CPU {wall_c:.2f} s; card vs CPU max pose diff "
-          f"{gap:.3e}; launches raywalk_scan {l_scan}, nn_argmin {l_nn}",
+          f"{gap:.3e}; launches raywalk_scan {l_scan}, nn_argmin {l_nn}, "
+          f"icp_sweep_tail {l_k5} (the relocalization's polish)",
           flush=True)
     if fired_g != [tk] or fired_c != [tk]:
         fail("[15] (d) the loss gate did not fire at the kidnap step only")
@@ -1384,7 +1501,7 @@ def pf_reloc_phase(dev, cfg) -> tuple:
     if (max(gaps) > SMALL_PF_TOL or not flags or not hits
             or not torch.equal(pg, pc)):
         fail("[15] (e) the card's particle filters disagree with the CPU's")
-    return launches, nn_r
+    return launches, nn_r, k5_r, dev_k5
 
 
 WARMUP_SEEDS, WARMUP_BATCH = 24, 8  # [16]: warmup_icp.py --synthetic
@@ -1448,6 +1565,7 @@ def warmup_phase(dev) -> dict:
     lidar_slam_tpu_torch.warmup_icp --synthetic --num_pc 4` on the card
     and with --device cpu: the same "Best errors" block. Returns the
     launches and nn_check's numbers."""
+    from lidar_slam_tpu_torch.kernels.icp import icp_sweep_tail
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.models import warmup
     from lidar_slam_tpu_torch.ops import icp as icp_ops
@@ -1458,7 +1576,7 @@ def warmup_phase(dev) -> dict:
         tgt = warmup.synthetic_pc(model, i)
         G = warmup.synthetic_pose(model, i)
         torch.cuda.synchronize()
-        nn_argmin.launches = 0
+        nn_argmin.launches = icp_sweep_tail.launches = 0
         t0 = time.perf_counter()
         T, err, errs, iters = warmup.best_icp_alignment(
             model, tgt, n_seeds=WARMUP_SEEDS, seed_batch=WARMUP_BATCH,
@@ -1477,6 +1595,8 @@ def warmup_phase(dev) -> dict:
               f"translation {trans:.5f} m", flush=True)
         if n_k4 == 0:
             fail(f"[16] (a) cloud {i}: nn_argmin was not launched")
+        if icp_sweep_tail.launches:
+            fail(f"[16] (a) cloud {i}: the 3-D fit took the fused sweep")
         if not np.isfinite(T).all() or trans > WARMUP_TRANS_TOL:
             fail(f"[16] (a) cloud {i}: translation {trans} off the applied "
                  f"one (gate {WARMUP_TRANS_TOL})")
@@ -1616,21 +1736,21 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _rank_stats(world, mesh, wall: float, k2: int, k4: int) -> list:
-    """Every rank's [wall s, collective s, bytes, collectives, K2 and K4
-    launches] of the sub-phase that just ran on `mesh`, gathered over the
-    1-D mesh `world` after it."""
+def _rank_stats(world, mesh, wall: float, k2: int, k4: int, k5: int) -> list:
+    """Every rank's [wall s, collective s, bytes, collectives, K2, K4 and
+    K5 launches] of the sub-phase that just ran on `mesh`, gathered over
+    the 1-D mesh `world` after it."""
     from lidar_slam_tpu_torch.parallel.mesh import all_gather
 
     mine = torch.tensor([wall, mesh.seconds, mesh.bytes, mesh.calls, k2,
-                         k4], dtype=torch.float64, device=mesh.device)
+                         k4, k5], dtype=torch.float64, device=mesh.device)
     return all_gather(mine, world, "dp").tolist()
 
 
 def sharded_ranks(device, inp: dict) -> dict:
     """[17]'s rank program: the sub-phases in inp["phases"], each timed on
     the host clock to a synchronize, with the mesh's collective counters
-    and K2's and K4's launch counters reset just before it; the launches
+    and K2's, K4's and K5's launch counters reset just before it; the launches
     of the comparisons a rank makes itself ((g)'s block run alone) are
     not counted. Returns, on every rank, each sub-phase's result and
     every rank's stats."""
@@ -1638,6 +1758,7 @@ def sharded_ranks(device, inp: dict) -> dict:
 
     from lidar_slam_tpu_torch.config import (IcpConfig, PoseGraphConfig,
                                              SlamConfig)
+    from lidar_slam_tpu_torch.kernels.icp import icp_sweep_tail
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.kernels.raywalk import raywalk_scan
     from lidar_slam_tpu_torch.models import particle_filter as pf
@@ -1661,6 +1782,7 @@ def sharded_ranks(device, inp: dict) -> dict:
     def timed(tag, mesh, fn):
         _sync(device)
         raywalk_scan.launches = nn_argmin.launches = 0
+        icp_sweep_tail.launches = 0
         mesh.reset_counters()
         t0 = time.perf_counter()
         result = fn()
@@ -1668,7 +1790,8 @@ def sharded_ranks(device, inp: dict) -> dict:
         wall = time.perf_counter() - t0
         k2, k4 = raywalk_scan.launches, nn_argmin.launches
         out[tag] = result
-        out[f"{tag}_stats"] = _rank_stats(m1, mesh, wall, k2, k4)
+        out[f"{tag}_stats"] = _rank_stats(m1, mesh, wall, k2, k4,
+                                          icp_sweep_tail.launches)
         return result
 
     a = inp.get("a")
@@ -1917,18 +2040,19 @@ def sharded_phase(dev, cfg, d20, res5, log21, pts21, masks21) -> dict:
         return (f"wall {s[:, 0].max():.3f} s; collectives {s[0, 3]:.0f} a "
                 f"rank, {s[:, 1].max():.3f} s, {s[0, 2]:,.0f} bytes a rank;"
                 f" K2 launches a rank {s[:, 4].astype(int).tolist()}, K4 "
-                f"{s[:, 5].astype(int).tolist()}")
+                f"{s[:, 5].astype(int).tolist()}, K5 "
+                f"{s[:, 6].astype(int).tolist()}")
 
     t0 = time.perf_counter()
     r = launch.run_ranks(sharded_ranks, SHARDED_RANKS, None, dev.type, inp)
     print(f"[17] {SHARDED_RANKS} ranks spawned and run in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    launches = {"raywalk_scan": 0, "nn_argmin": 0}
+    columns = {"raywalk_scan": 4, "nn_argmin": 5, "icp_sweep_tail": 6}
+    launches = dict.fromkeys(columns, 0)
     for key, val in r.items():
         if key.endswith("_stats"):
-            s = np.asarray(val)
-            launches["raywalk_scan"] += int(s[:, 4].sum())
-            launches["nn_argmin"] += int(s[:, 5].sum())
+            for name, col in columns.items():
+                launches[name] += int(np.asarray(val)[:, col].sum())
 
     # (a) against K1's whole build
     ref_a = raywalk_build(occupancy.ray_ends(f32(gt20), pts20, cfg.map),
@@ -1961,10 +2085,8 @@ def sharded_phase(dev, cfg, d20, res5, log21, pts21, masks21) -> dict:
     if (r1["backend"] != pick_backend(1, dev)
             or diff_1 > SHARDED_MAP_TOL or not same_1):
         fail("[17] (a) the one-rank NCCL map disagrees with raywalk_build")
-    for key in ("raywalk_scan", "nn_argmin"):
-        launches[key] += int(np.asarray(r1["a_stats"])[:, 4 if key ==
-                                                        "raywalk_scan" else 5]
-                             .sum())
+    for name, col in columns.items():
+        launches[name] += int(np.asarray(r1["a_stats"])[:, col].sum())
 
     # (b) the ray split against K1 on the same scans
     n = RAY_SCANS
@@ -2165,6 +2287,7 @@ def main() -> int:
     from lidar_slam_tpu_torch import sensors
     from lidar_slam_tpu_torch.config import MapConfig, SlamConfig
     from lidar_slam_tpu_torch.kernels import build
+    from lidar_slam_tpu_torch.kernels.icp import icp_sweep_tail
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.kernels.raywalk import (OWNER_SIDE, raywalk_bins,
                                                       raywalk_bins_plain,
@@ -2199,6 +2322,8 @@ def main() -> int:
           f"{nn_ms:.4f} ms, plain {nn_plain_ms:.4f} ms, torch.cdist + argmin "
           f"{nn_lib_ms:.4f} ms; bound {nn_bound[0]:.5f} ms "
           f"({nn_bound[1]})", flush=True)
+    k5_64 = k5_check(pts3[1:65], pts3[:64], masks20[1:65], masks20[:64], 50)
+    print(f"[3] {k5_line('64 x 1081 x 1081', k5_64)}", flush=True)
 
     # 4. raywalk_build vs plain on 32 scans
     K20 = occupancy.adaptive_ray_cells(pts20, masks20, cfg.map, 30.0)
@@ -2232,13 +2357,14 @@ def main() -> int:
     log21 = args
     slam.run_slam(*args, mode="gtsam", cfg=cfg, device=dev)  # warm-up
     torch.cuda.synchronize()
-    nn_argmin.launches = 0
+    nn_argmin.launches = icp_sweep_tail.launches = 0
     raywalk_build.launches = 0
     t0 = time.perf_counter()
     res = slam.run_slam(*args, mode="gtsam", cfg=cfg, device=dev)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {"nn_argmin": nn_argmin.launches,
+                "icp_sweep_tail": icp_sweep_tail.launches,
                 "raywalk_build": raywalk_build.launches}
     st = res.stage_seconds
     print("[5] main path gtsam, 4956 scans x 1081 rays: total "
@@ -2253,6 +2379,8 @@ def main() -> int:
           f"free cells {free}; launches {launches}", flush=True)
     if min(launches.values()) == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
+    if launches["icp_sweep_tail"] != launches["nn_argmin"]:
+        fail(f"[5] an ICP sweep missed the fused path: {launches}")
     if res.poses.shape != (4956, 3) or not np.isfinite(res.poses).all():
         fail("main path poses are not finite (4956, 3)")
     if occ == 0 or free == 0:
@@ -2414,6 +2542,8 @@ def main() -> int:
     pts3_21 = icp_ops.lift_to_3d(pts21)
     flips1, gap1, nn1_ms, nn1_plain_ms, nn1_lib_ms, nn1_bound = nn_check(
         pts3_21[101:102], pts3_21[100:101], masks21[100:101], 200)
+    k5_1 = k5_check(pts3_21[101:102], pts3_21[100:101], masks21[101:102],
+                    masks21[100:101], 200)
     print(f"[7] per scan (CUDA events, 100 launches, kernel-plain turns "
           f"{t_plain[0]:.4f}/{t_k[0]:.4f}/{t_k[1]:.4f}/{t_plain[1]:.4f} ms):"
           f" raywalk_scan {scan_ms:.4f} ms, plain scatter + clamp on the GPU"
@@ -2423,6 +2553,7 @@ def main() -> int:
           f"{flips1:.5f}, gap {gap1:.3e}, kernel {nn1_ms:.4f} ms, plain "
           f"{nn1_plain_ms:.4f} ms, torch.cdist + argmin {nn1_lib_ms:.4f} ms, "
           f"bound {nn1_bound[0]:.5f} ms ({nn1_bound[1]})", flush=True)
+    print(f"[7] {k5_line('B=1 1x1081x1081', k5_1)}", flush=True)
 
     # 8. the online (serving) path at dataset-20 width
     max_d, max_y = (float(v) for v in odometry.max_step_gates(
@@ -2452,10 +2583,12 @@ def main() -> int:
     stream(50)  # warm-up
     n_on = pts21.shape[0]
     nn_argmin.launches = raywalk_build.launches = raywalk_scan.launches = 0
+    icp_sweep_tail.launches = 0
     t0 = time.perf_counter()
     st, step_s, refine_s, refined = stream(n_on)
     wall = time.perf_counter() - t0
     launches_on = {"nn_argmin": nn_argmin.launches,
+                   "icp_sweep_tail": icp_sweep_tail.launches,
                    "raywalk_build": raywalk_build.launches,
                    "raywalk_scan": raywalk_scan.launches}
     p50, p99 = (float(np.percentile(step_s, q)) * 1e3 for q in (50, 99))
@@ -2472,6 +2605,8 @@ def main() -> int:
              f"expected {painted}")
     if launches_on["nn_argmin"] == 0:
         fail("nn_argmin was not launched on the online path")
+    if launches_on["icp_sweep_tail"] != launches_on["nn_argmin"]:
+        fail(f"[8] an ICP sweep missed the fused path: {launches_on}")
     track = st.poses_hist[:n_on]
     if not bool(torch.isfinite(track).all()):
         fail("online poses are not finite")
@@ -2546,6 +2681,12 @@ def main() -> int:
     dev_nn = device_ms(lambda: nn_argmin(pts3[1:65], pts3[:64],
                                          masks20[:64]), 50,
                        "nn_argmin_kernel")
+    dev_k5_1, dev_k5_64 = (device_ms(r[7], n, "icp_sweep_tail_kernel")
+                           for r, n in ((k5_1, 200), (k5_64, 50)))
+    print(f"[11] icp_sweep_tail under torch.profiler: B=1, 200 launches, "
+          f"{fmt(dev_k5_1, 5)} vs CUDA events {k5_1[2]:.4f} ms; 64 pairs, "
+          f"50 launches, {fmt(dev_k5_64, 5)} vs {k5_64[2]:.4f} ms",
+          flush=True)
 
     def main_build():
         raywalk_build(ends_main, masks21, cfg.map, K)
@@ -2687,7 +2828,7 @@ def main() -> int:
     # 14. revisit loop closures
     launches_rv = revisit_phase(dev, cfg, log21, res, pts21, masks21)
     # 15. particle filters and relocalization
-    launches_pf, nn_pf = pf_reloc_phase(dev, cfg)
+    launches_pf, nn_pf, k5_pf, dev_k5_pf = pf_reloc_phase(dev, cfg)
     # 16. the 3-D ICP warm-up
     warm = warmup_phase(dev)
     # 17. the multi-rank layer
@@ -2721,6 +2862,28 @@ def main() -> int:
          "bound_by_warmup": warm["nn"][5][1],
          "device_ms_warmup": warm["device_ms"],
          "launches_sharded": launches_sh["nn_argmin"]},
+        # K5 replaces no Pallas kernel (XLA fuses the JAX loop's tail) and
+        # no one PyTorch call computes it; its plain version runs on the
+        # card; the warm-up's 3-D sweeps take none ([16] fails otherwise)
+        {"name": "icp_sweep_tail", "route": "cuda",
+         "source": "lidar_slam_tpu_torch/csrc/icp.cu", "replaces": None,
+         "launches": launches["icp_sweep_tail"]
+         + launches_on["icp_sweep_tail"],
+         "max_abs_err": max(k5_64[0], k5_1[0], k5_pf[0]),
+         "max_rad_err": max(k5_64[1], k5_1[1], k5_pf[1]),
+         "ms": k5_64[2], "plain_ms": k5_64[3], "bound_ms": k5_64[6][0],
+         "bound_by": k5_64[6][1], "library_ms": None,
+         "device_ms": dev_k5_64, "sweep_ms": k5_64[4],
+         "op_sweep_ms": k5_64[5], "ms_b1": k5_1[2], "plain_ms_b1": k5_1[3],
+         "bound_ms_b1": k5_1[6][0], "device_ms_b1": dev_k5_1,
+         "sweep_ms_b1": k5_1[4], "op_sweep_ms_b1": k5_1[5],
+         "ms_reloc": k5_pf[2], "plain_ms_reloc": k5_pf[3],
+         "bound_ms_reloc": k5_pf[6][0], "device_ms_reloc": dev_k5_pf,
+         "sweep_ms_reloc": k5_pf[4], "op_sweep_ms_reloc": k5_pf[5],
+         "launches_filtered": launches_f["icp_sweep_tail"],
+         "launches_revisit": launches_rv["icp_sweep_tail"],
+         "launches_pf_reloc": launches_pf["icp_sweep_tail"],
+         "launches_sharded": launches_sh["icp_sweep_tail"]},
         # no PyTorch call walks Bresenham rays: no library time for K1, K2
         {"name": "raywalk_build", "route": "cuda",
          "source": "lidar_slam_tpu_torch/csrc/raywalk.cu",

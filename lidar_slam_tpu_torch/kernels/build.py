@@ -114,6 +114,8 @@ def library() -> ctypes.CDLL:
     lib.slam_raywalk_walk.restype = i
     lib.slam_raywalk_scan.argtypes = [p, p, i, i, i, i, f, f, i, p, p]
     lib.slam_raywalk_scan.restype = i
+    lib.slam_icp_sweep_tail.argtypes = [p] * 12 + [i, i, i, f, i, f, p]
+    lib.slam_icp_sweep_tail.restype = i
     probes = {  # csrc/probes.cu, P1-P9
         "slam_probe_smem_stream": [p, i, p, i, i, p],
         "slam_probe_dynamic_store": [p, i, p, i, i, p],

@@ -26,10 +26,18 @@ warm-up of models/warmup.py); PLICP is planar only.
 The JAX package runs the loop as one lax.while_loop on device; here it is a
 Python loop that reads the batch's done flag after each iteration (the
 "icp.batch" span; utils/tracing counts the trips as icp.sweeps). The
-correspondence step is the Hopper NN kernel for CUDA tensors
+correspondence step is the Hopper NN kernel K4 for CUDA tensors
 (kernels/nn.py) and its plain version for CPU tensors; nn_chunk bounds the
 plain version's (B, N, M) distances on the CPU (ops/nn.py
 nearest_neighbors_chunked, the JAX package's nn_backend="chunked").
+
+Two paths, chosen from the inputs alone (fused_path): on CUDA float32
+tensors, planar point-to-point ICP without trimming, the reference's
+algorithm, runs each sweep as two launches, K4 and K5 (kernels/icp.py,
+csrc/icp.cu), which fits, measures, applies the stopping rules and updates
+the carry in place, the sources under the new transform included. PLICP,
+TrICP, the 3-D fit and every CPU tensor take the op-by-op sweep, which is
+also what K5 is held to on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.icp import icp_sweep_tail
 from ..kernels.nn import nn_argmin
 from ..utils import tracing
 from .kabsch import (fit_point_to_line_planar, kabsch, kabsch_planar,
@@ -100,10 +109,19 @@ def _trim_mask(d2: torch.Tensor, mask: torch.Tensor,
     return mask & (d2m <= thresh)
 
 
+def fused_path(device: torch.device, dtype: torch.dtype, planar: bool,
+               metric: str, trim_fraction: float) -> bool:
+    """Whether run_icp_batch sweeps through K4 and K5 (the fused path)
+    rather than op by op: CUDA float32 tensors, planar point-to-point ICP,
+    no trimming."""
+    return (device.type == "cuda" and dtype is torch.float32 and planar
+            and metric == "point" and trim_fraction == 1.0)
+
+
 def icp_iteration(src, tgt, src_mask, tgt_mask, T_prev,
                   normalize_error: bool = False, trim_fraction: float = 1.0,
                   metric: str = "point", planar: bool = True,
-                  nn_chunk: int | None = None):
+                  nn_chunk: int | None = None, *, carry=None, stop=None):
     """One batched ICP iteration on (B, P, 3) clouds.
 
     Returns (T_next, correspondences, error) with the error measured at
@@ -114,7 +132,21 @@ def icp_iteration(src, tgt, src_mask, tgt_mask, T_prev,
     trim_fraction < 1 fits and measures only the trimmed set (_trim_mask).
     nn_chunk: on CPU tensors, search the sources nn_chunk at a time (the
     same indices); CUDA tensors always take the NN kernel.
+
+    With `carry`, the fused path's IcpCarry (src_t set), the sweep is K4 on
+    carry.src_t and K5, and `stop` = (epsilon, max_iters, stopping_thresh)
+    are _icp_body's stopping rules: the carry advances in place, done pairs
+    frozen, and (carry.T, carry.idx, carry.err) is returned; T_prev is
+    carry.T then.
     """
+    if carry is not None:
+        if not (metric == "point" and planar and trim_fraction == 1.0):
+            raise ValueError("the fused sweep is planar point-to-point ICP "
+                             "without trimming")
+        idx, matched = nn_argmin(carry.src_t, tgt, tgt_mask)
+        icp_sweep_tail(src, matched, idx, src_mask, carry, normalize_error,
+                       *stop)
+        return carry.T, carry.idx, carry.err
     if metric not in ("point", "point_to_line"):
         raise ValueError(f"unknown icp metric {metric!r}")
     if metric == "point_to_line" and not planar:
@@ -156,12 +188,17 @@ class IcpCarry(NamedTuple):
     idx: torch.Tensor  # (B, P) int32
     k: torch.Tensor  # (B,) int32
     done: torch.Tensor  # (B,) bool
+    # (B, P, 3) the sources under T, K4's input: the fused path's carry only
+    src_t: torch.Tensor | None = None
 
 
-def initial_icp_carry(init_T: torch.Tensor, P: int,
-                      dtype: torch.dtype) -> IcpCarry:
+def initial_icp_carry(init_T: torch.Tensor, P: int, dtype: torch.dtype,
+                      src: torch.Tensor | None = None) -> IcpCarry:
+    """The carry before the first sweep. With src (B, P, 3), the fused
+    path's carry: T a contiguous copy of init_T, which K5 updates in
+    place, and src_t the sources under it."""
     B, dev = init_T.shape[0], init_T.device
-    return IcpCarry(
+    c = IcpCarry(
         T=init_T.to(dtype),
         err=torch.full((B,), _INF, dtype=dtype, device=dev),
         last_err=torch.full((B,), _INF, dtype=dtype, device=dev),
@@ -170,6 +207,10 @@ def initial_icp_carry(init_T: torch.Tensor, P: int,
         k=torch.zeros((B,), dtype=torch.int32, device=dev),
         done=torch.zeros((B,), dtype=torch.bool, device=dev),
     )
+    if src is None:
+        return c
+    T = c.T.clone(memory_format=torch.contiguous_format)
+    return c._replace(T=T, src_t=_transform(src, T).contiguous())
 
 
 def _icp_body(src, tgt, src_mask, tgt_mask, c: IcpCarry, epsilon: float,
@@ -178,7 +219,13 @@ def _icp_body(src, tgt, src_mask, tgt_mask, c: IcpCarry, epsilon: float,
               metric: str = "point", planar: bool = True,
               nn_chunk: int | None = None) -> IcpCarry:
     """One iteration: live pairs advance one fit and evaluate the stopping
-    rules with this iteration's error; done pairs freeze."""
+    rules with this iteration's error; done pairs freeze. A fused carry
+    (src_t set) advances in place through K4 and K5."""
+    if c.src_t is not None:
+        icp_iteration(src, tgt, src_mask, tgt_mask, c.T, normalize_error,
+                      trim_fraction, metric, planar, nn_chunk, carry=c,
+                      stop=(epsilon, max_iters, stopping_thresh))
+        return c
     T_new, idx, err = icp_iteration(src, tgt, src_mask, tgt_mask, c.T,
                                     normalize_error, trim_fraction, metric,
                                     planar, nn_chunk)
@@ -223,9 +270,14 @@ def run_icp_batch(
     src/tgt (B, P, 3) clouds (z = 0 for planar=True), src_mask/tgt_mask
     (B, P) validity, init_T (B, 4, 4) seeds. Defaults mirror the reference
     (modules/icp.py:123-133); trim_fraction, metric, planar and nn_chunk
-    as icp_iteration.
+    as icp_iteration. On the fused path (fused_path) each trip is two
+    launches, K4 and K5.
     """
-    c = initial_icp_carry(init_T, src.shape[1], src.dtype)
+    fused = fused_path(src.device, src.dtype, planar, metric, trim_fraction)
+    if fused:
+        src, src_mask = src.contiguous(), src_mask.contiguous()
+    c = initial_icp_carry(init_T, src.shape[1], src.dtype,
+                          src if fused else None)
     # no pair starts done: the batch's done flag is read after each trip
     done = src.shape[0] == 0
     with tracing.span("icp.batch"):
@@ -233,7 +285,9 @@ def run_icp_batch(
             c = _icp_body(src, tgt, src_mask, tgt_mask, c, epsilon,
                           max_iters, stopping_thresh, normalize_error,
                           trim_fraction, metric, planar, nn_chunk)
-            done = bool(c.done.all())
+            # a copy of B flags, no reduction kernel: a fused trip stays
+            # two launches
+            done = bool(c.done.cpu().all())
             tracing.count("icp.sweeps")
             tracing.count("host.syncs")
     return IcpResult(T=c.T, error=c.err, iters=c.k, correspondences=c.idx)

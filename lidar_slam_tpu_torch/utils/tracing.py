@@ -21,7 +21,8 @@ on or off: spans time the host, and every count is a number the host
 already holds. The counters:
 
   icp.sweeps   trips of ops/icp.run_icp_batch's loop (one _icp_body and,
-               on CUDA, one nn_argmin launch each);
+               on CUDA, one nn_argmin launch each; on the fused path also
+               one icp_sweep_tail launch);
   host.syncs   reads of a device value back to the host by the port's own
                code on the gtsam path with fixed-interval loops, in
                online_step and in pf_step (which makes none): the ICP
@@ -154,10 +155,10 @@ def disable() -> None:
 
 def _launches() -> dict:
     """The kernel wrappers' own launch counts ("launches.<wrapper>")."""
-    from ..kernels import nn, probes, raywalk
+    from ..kernels import icp, nn, probes, raywalk
 
     return {f"launches.{name}": fn.launches
-            for mod in (nn, raywalk, probes)
+            for mod in (nn, icp, raywalk, probes)
             for name, fn in vars(mod).items()
             if callable(fn) and isinstance(getattr(fn, "launches", None),
                                            int)}

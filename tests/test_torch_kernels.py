@@ -14,16 +14,20 @@ import torch
 
 from lidar_slam_tpu_torch.config import MapConfig
 from lidar_slam_tpu_torch.kernels import build, probes
+from lidar_slam_tpu_torch.kernels import icp as k5
 from lidar_slam_tpu_torch.kernels.nn import nn_argmin, nn_argmin_rounded
 from lidar_slam_tpu_torch.kernels import raywalk as rw
 from lidar_slam_tpu_torch.kernels.raywalk import (OWNER_SIDE, raywalk_bins,
                                                   raywalk_bins_plain,
                                                   raywalk_build, raywalk_scan)
-from lidar_slam_tpu_torch.models import occupancy
+from lidar_slam_tpu_torch.models import occupancy, slam
+from lidar_slam_tpu_torch.ops import icp as icp_ops
 from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
 from lidar_slam_tpu_torch.ops.raywalk import scan_delta_raywalk
 from lidar_slam_tpu_torch.tools import pallas_probe, scatter_microbench
 from lidar_slam_tpu_torch.tools import vpu_probe
+from lidar_slam_tpu_torch.utils import io, tracing
+from torch_icp_cases import fused_copy, icp_pairs, lockstep, pose_gap
 from torch_vpu_tiles import retile
 
 pytestmark = pytest.mark.cuda
@@ -930,3 +934,147 @@ def test_probe_wrappers_reject_bad_inputs(dev):
         probes.vpu_loop(xs.view(4, 2), torch.zeros((512, 512), device=dev,
                                                    dtype=torch.float64),
                         2, "full", 1)
+
+
+# -- icp_sweep_tail, K5 (csrc/icp.cu) ----------------------------------------
+
+@pytest.mark.parametrize("B,M,normalize,invalid,eps,max_iters,staggered", [
+    (1, 1081, False, 0.1, 1e-3, 2000, False),   # the online step
+    (1, 1081, True, 0.0, 1e-9, 2000, False),
+    (7, 1081, True, 0.1, 1e-9, 2000, True),
+    (64, 1081, False, 0.1, 1e-3, 2000, True),   # a scan-matching chunk
+    (64, 1081, True, 0.1, 1e-9, 2000, True),    # a loop-closure chunk
+    (64, 1081, False, 0.0, 1e-3, 3, False),     # max_iters reached
+    (8, 4096, True, 0.1, 0.01, 2000, False),    # the relocalization polish
+    (8, 4096, True, 0.1, 1e-9, 2000, False),
+])
+def test_icp_sweep_tail_matches_op_sweep_in_lockstep(dev, B, M, normalize,
+                                                     invalid, eps,
+                                                     max_iters, staggered):
+    """K5 against the op-by-op sweep on the card, sweep by sweep from the
+    same carry, so K4 sees the same input on both sides: done, k and idx
+    equal, T within 1e-5 m and 1e-6 rad, the errors within float32
+    rounding of their sums (1e-5 relative), pairs frozen once done (in the
+    staggered cases pairs stop on different sweeps); and against its plain
+    version on the same inputs (float64 sums on both sides): done, k and
+    idx equal, T within 1e-6 m and 1e-6 rad."""
+    pairs = icp_pairs(B, 1081, M, seed=7 * B + M, invalid=invalid,
+                      device=dev)
+    rules = (eps, max_iters, 1e-4, normalize)
+    launches = k5.icp_sweep_tail.launches
+    sweeps = 0
+    for before, op, fused in lockstep(pairs, rules):
+        sweeps += 1
+        plain = fused_copy(before, pairs[0])
+        idx, matched = nn_argmin(plain.src_t, pairs[1], pairs[3])
+        k5.icp_sweep_tail_plain(pairs[0], matched, idx, pairs[2], plain,
+                                normalize, *rules[:3])
+        torch.cuda.synchronize()
+        for want, tol in ((op, 1e-5), (plain, 1e-6)):
+            assert torch.equal(want.done, fused.done)
+            assert torch.equal(want.k, fused.k)
+            assert torch.equal(want.idx, fused.idx)
+            dt, dr = pose_gap(want.T, fused.T)
+            assert float(dt.max()) <= tol and float(dr.max()) <= 1e-6
+            for a, b in ((want.err, fused.err),
+                         (want.last_err2, fused.last_err2)):
+                assert torch.allclose(a, b, rtol=tol, atol=0,
+                                      equal_nan=True)
+        frozen = before.done
+        assert torch.equal(fused.T[frozen], before.T[frozen])
+        live = ~fused.done
+        assert torch.allclose(fused.src_t[live], icp_ops._transform(
+            pairs[0], fused.T)[live], rtol=0, atol=1e-5)
+        assert float((fused.src_t - plain.src_t).abs().max()) <= 1e-5
+    assert k5.icp_sweep_tail.launches == launches + sweeps
+    assert bool(op.done.all())
+    assert int(op.k.max()) <= max_iters + 1
+    if max_iters == 3:
+        assert int(op.k.max()) == max_iters + 1
+    assert (len(set(op.k.tolist())) > 1) == staggered
+
+
+def _gtsam_log(seed, n_steps=257):
+    d = io.synthetic_dataset(n_steps=n_steps, n_rays=1081, seed=seed)
+    return (d["encoder"]["counts"].astype(np.float32),
+            d["imu"]["angular_velocity"].astype(np.float32),
+            d["lidar"]["ranges"].astype(np.float32))
+
+
+def _run_gap(a, b):
+    """Pairs whose iteration counts differ (scan matching and loops), and
+    the scan-matching transforms' gaps (m, rad), of two SlamResults."""
+    it = [np.concatenate([r.scan_matching_iters, r.loop_iters])
+          for r in (a, b)]
+    dt, dr = (g.numpy() for g in pose_gap(*(torch.as_tensor(
+        r.relative_poses_scan_matching) for r in (a, b))))
+    return int((it[0] != it[1]).sum()), len(it[0]), dt, dr
+
+
+def test_icp_fused_gtsam_run_against_op_by_op(dev, monkeypatch):
+    """run_slam gtsam on a 257-step, 1,081-ray log on the card, through
+    K4 and K5 (one K5 launch a sweep, as many as K4's and as icp.sweeps)
+    against the op-by-op sweep on the card. Whole runs part where a
+    nearest-neighbour near-tie resolves the other way, which float32
+    rounding decides, so the yardstick is the op-by-op sweep's own
+    agreement between the card and the CPU: the fused run's iteration
+    counts differ from it in no more pairs than the op-by-op sweep's
+    differ between the card and the CPU, by at most 1 mm and 1e-4 rad,
+    and its loop decisions are the same."""
+    log = _gtsam_log(20)
+    tracing.reset()
+    tracing.enable()
+    try:
+        fused = slam.run_slam(*log, 0.1, 30.0, mode="gtsam",
+                              build_map=False, device=dev)
+        counts = tracing.snapshot()["counts"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert counts["launches.icp_sweep_tail"] == counts["icp.sweeps"] \
+        == counts["launches.nn_argmin"] > 0
+    monkeypatch.setattr(icp_ops, "fused_path", lambda *a: False)
+    before = k5.icp_sweep_tail.launches
+    op = slam.run_slam(*log, 0.1, 30.0, mode="gtsam", build_map=False,
+                       device=dev)
+    assert k5.icp_sweep_tail.launches == before
+    cpu = slam.run_slam(*log, 0.1, 30.0, mode="gtsam", build_map=False,
+                        device="cpu")
+    n_diff, n, dt, dr = _run_gap(fused, op)
+    n_yard, _, dt_yard, _ = _run_gap(op, cpu)
+    print(f"{n} pairs: iterations differ in {n_diff} (card vs CPU, op by "
+          f"op: {n_yard}); max gap {dt.max():.3g} m, {dr.max():.3g} rad "
+          f"(card vs CPU {dt_yard.max():.3g} m); median {np.median(dt):.3g}")
+    assert n_diff <= n_yard
+    assert dt.max() <= 1e-3 and dr.max() <= 1e-4
+    assert np.median(dt) <= 1e-6
+    assert np.array_equal(fused.loop_accept, op.loop_accept)
+
+
+def test_icp_sweep_tail_rejects_bad_inputs(dev):
+    src, tgt, sm, tm, T = icp_pairs(2, 50, 60, seed=1, device=dev)
+    c = icp_ops.initial_icp_carry(T, 50, torch.float32, src)
+    idx, matched = nn_argmin(c.src_t, tgt, tm)
+    rules = (False, 1e-3, 10, 1e-4)
+    bad = [((src[..., :2].contiguous(), matched, idx, sm, c),
+            "src must be"),
+           ((src, matched.double(), idx, sm, c), "matched must be"),
+           ((src, matched, idx.long(), sm, c), "idx must be"),
+           ((src, matched, idx, sm.int(), c), "src_mask must be"),
+           ((src, matched, idx, sm, c._replace(T=c.T[:1])),
+            "carry.T must be"),
+           ((src, matched, idx, sm, c._replace(done=c.done.int())),
+            "carry.done must be"),
+           ((src, matched, idx, sm, c._replace(
+               src_t=torch.zeros((2, 50, 6), device=dev)[..., ::2])),
+            "carry.src_t must be contiguous"),
+           ((src, matched, idx.cpu(), sm, c), "idx must be contiguous on")]
+    launches = k5.icp_sweep_tail.launches
+    for args, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            k5.icp_sweep_tail(*args, *rules)
+    assert k5.icp_sweep_tail.launches == launches
+    k5.icp_sweep_tail(src, matched, idx, sm, c, *rules)
+    torch.cuda.synchronize()
+    assert k5.icp_sweep_tail.launches == launches + 1
+    assert (c.k == 1).all()

@@ -24,6 +24,7 @@ from lidar_slam_tpu.ops.pallas_nn import nearest_neighbors_pallas
 from lidar_slam_tpu.utils import io as jio
 from lidar_slam_tpu.utils import se2 as jse2
 
+from lidar_slam_tpu_torch.kernels.icp import icp_sweep_tail
 from lidar_slam_tpu_torch.kernels.nn import nn_argmin
 from lidar_slam_tpu_torch.models import odometry as t_odo
 from lidar_slam_tpu_torch.models import scan_matching as tsm
@@ -294,6 +295,24 @@ def test_run_icp_batch_matches_jax(dt, normalize):
                                atol=1e-12)
     if dt == "f64":
         np.testing.assert_array_equal(tr.correspondences.numpy(), jidx)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_run_icp_batch_fused_sweep_matches_jax(normalize, monkeypatch):
+    """The float32 case above through the fused sweep: K5's arithmetic (its
+    plain version on CPU tensors: float64 raw moments centred at the end,
+    the sources carried across sweeps, the stopping rules in the kernel's
+    order) against the JAX package, under the same tolerances."""
+    sweeps = []
+
+    def tail(*a):
+        sweeps.append(a[4].k.clone())
+        return icp_sweep_tail(*a)
+
+    monkeypatch.setattr(ticp, "fused_path", lambda *a: True)
+    monkeypatch.setattr(ticp, "icp_sweep_tail", tail)
+    test_run_icp_batch_matches_jax("f32", normalize)
+    assert len(sweeps) > 2 and int(sweeps[-1].max()) >= 2
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))

@@ -141,8 +141,8 @@ def test_library_path_hashes_every_csrc_file(tmp_path, monkeypatch):
     header.write_text("#pragma once\nconstexpr int kTile = 32;\n")
     edited = build.library_path()
     assert len({base, added, edited}) == 3
-    assert [p.name for p in build.sources()] == ["nn.cu", "probes.cu",
-                                                 "raywalk.cu"]
+    assert [p.name for p in build.sources()] == ["icp.cu", "nn.cu",
+                                                 "probes.cu", "raywalk.cu"]
     header.unlink()
     assert build.library_path() == base
 
@@ -223,7 +223,7 @@ def test_kernel_wrappers_launch_through_build_entry():
                 entries.add(path.name)
         assert "_cuda_get" not in src or path.name == "build.py", path.name
     assert device_calls == [("build.py", "Entry.__call__")]
-    assert entries == {"nn.py", "probes.py", "raywalk.py"}
+    assert entries == {"icp.py", "nn.py", "probes.py", "raywalk.py"}
 
 
 class _FakeLibrary:
