@@ -396,12 +396,19 @@ def revisit_closures(pts3, masks, poses, pg, ranges, range_min: float,
 def filter_scans(points: torch.Tensor, masks: torch.Tensor,
                  cfg: SlamConfig) -> torch.Tensor:
     """main.py --filter_lidar: the DBSCAN outlier filter, then the pooled
-    statistical range filter, as masks (ops/filters.py)."""
-    masks = filters.dbscan_filter_scans(
-        points, masks, eps=cfg.filter.dbscan_eps,
-        min_samples=cfg.filter.dbscan_min_samples)
-    return filters.statistical_filter_scans(
-        points, masks, k_std=cfg.filter.statistical_k_std)
+    statistical range filter, as masks (ops/filters.py). Each is a span
+    (utils/tracing: "filter.dbscan", "filter.statistical"); while tracing
+    is on, DBSCAN's ends in a device synchronize on CUDA, so that its host
+    seconds hold its device work."""
+    with tracing.span("filter.dbscan"):
+        masks = filters.dbscan_filter_scans(
+            points, masks, eps=cfg.filter.dbscan_eps,
+            min_samples=cfg.filter.dbscan_min_samples)
+        if tracing.enabled() and masks.device.type == "cuda":
+            torch.cuda.synchronize(masks.device)
+    with tracing.span("filter.statistical"):
+        return filters.statistical_filter_scans(
+            points, masks, k_std=cfg.filter.statistical_k_std)
 
 
 def resolve_device(device) -> torch.device:

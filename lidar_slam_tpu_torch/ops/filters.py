@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
+
 
 def _pair_d2(pts: torch.Tensor) -> torch.Tensor:
     """(..., P, P) squared pairwise distances of (..., P, 2) points:
@@ -96,12 +98,17 @@ def dbscan_filter_scans(points: torch.Tensor, masks: torch.Tensor,
     """Per-scan DBSCAN outlier removal over the (N, P, 2) batch
     (reference: modules/localization.py:201-221, main.py:86), chunk_size
     scans at a time to bound the (chunk, P, P) working set. Each scan's
-    mask depends on that scan alone, so the chunk does not change it."""
+    mask depends on that scan alone, so the chunk does not change it.
+    Counts each chunk (utils/tracing "filter.chunks") and its scans x P x
+    P pair tests ("filter.pairs"), from the shapes."""
     out = torch.empty_like(masks, dtype=torch.bool)
-    for s in range(0, points.shape[0], max(1, chunk_size)):
-        e = s + max(1, chunk_size)
+    n, P = points.shape[0], points.shape[-2]
+    for s in range(0, n, max(1, chunk_size)):
+        e = min(n, s + max(1, chunk_size))
         out[s:e] = dbscan_outlier_mask(points[s:e], masks[s:e], eps,
                                        min_samples)
+        tracing.count("filter.chunks")
+        tracing.count("filter.pairs", (e - s) * P * P)
     return out
 
 

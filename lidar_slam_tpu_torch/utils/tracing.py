@@ -29,7 +29,10 @@ already holds. The counters:
                `done` read, the LM `done` and CG residual reads, the
                pose-graph span check, the map build's ray budget and bin
                total, the loss gate when its threshold is finite, and
-               run_slam's copies of its results.
+               run_slam's copies of its results;
+  filter.chunks  chunks of scans through ops/filters.dbscan_filter_scans
+               (main.py --filter_lidar: 310 for 4,956 scans);
+  filter.pairs   the pair tests those chunks make, scans x P x P.
 
 The state is the process's, as `logging`'s is: one tracer, driven from
 one thread.
@@ -151,6 +154,10 @@ def enable() -> None:
 def disable() -> None:
     global _on
     _on = False
+
+
+def enabled() -> bool:
+    return _on
 
 
 def _launches() -> dict:
