@@ -159,7 +159,14 @@ first failure and catches nothing):
      pairs, each rank's block equal to the block run alone; then (h)
      dryrun_multichip(4). Each prints its backend, world size, card
      count, wall and collective seconds, bytes and K2 and K4 launches a
-     rank.
+     rank;
+ 18. block_tridiag (K6, tridiag_phase) at the offline cells' banded shape
+     (496 blocks of 30 x 30, m = 1, q = 32) and at direct_solve's on
+     dataset 20's 495 loops (4,956 blocks of 3 x 3, m = 1,486, q = 64),
+     float32: against its plain version on the card, then timed in turns
+     with the plain version and the op-by-op block_tridiag_solve, and its
+     three kernels under torch.profiler. [5] and [12] gate K6's launches
+     at three an LM iteration.
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2, K4 and K5
@@ -175,7 +182,9 @@ polish inputs and on [16] (c)'s warm-up inputs, with [16]'s launches;
 K2, K4 and K5 also with [17]'s launches over every rank; icp_sweep_tail
 also at B = 1 and on [15] (c)'s polish inputs, with whole sweeps' times;
 P1-P6 and nn_argmin at B = 1
-with their host split; P9 also with the probe tool's slopes), and
+with their host split; P9 also with the probe tool's slopes;
+block_tridiag also at direct_solve's shape, beside the op-by-op solve, its
+bound by float64 operations over 34 TFLOP/s, and with [12]'s launches), and
 {"ok": true, "device": ...}.
 """
 
@@ -205,6 +214,14 @@ K5_SWEEPS = 3  # lockstep sweeps a case: the first skips the delta rule
 # K5 a source point: src_t, matched, the mask, src and idx read, src_t and
 # idx written (csrc/icp.cu); about 20 float64 operations
 K5_BYTES, K5_OPS = 57, 20
+FP64_OPS_S = 34e12  # H100 SXM FP64 outside the tensor cores, published
+# [18] block_tridiag (K6) against its plain version on the card, both
+# float64 inside, on float32 systems (the LM's dtype): each side rounds its
+# solution once, so they part by about an ulp; relative to max |x|
+K6_RTOL = 1e-6
+# [18]: the offline cells' banded solve (fixed_interval 10 on 4,956 poses)
+# and direct_solve on dataset 20's 495 fixed-interval loops: (n, b, m, q)
+K6_SHAPES = {"banded": (496, 30, 1, 32), "direct": (4956, 3, 1 + 3 * 495, 64)}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -742,6 +759,7 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     from lidar_slam_tpu_torch.kernels.icp import icp_sweep_tail
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
+    from lidar_slam_tpu_torch.kernels.tridiag import block_tridiag
     from lidar_slam_tpu_torch.models import occupancy, slam
     from lidar_slam_tpu_torch.ops import filters
 
@@ -750,7 +768,7 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
                   device=dev)  # warm-up
     torch.cuda.synchronize()
     nn_argmin.launches = icp_sweep_tail.launches = 0
-    raywalk_build.launches = 0
+    raywalk_build.launches = block_tridiag.launches = 0
     t0 = time.perf_counter()
     res = slam.run_slam(*log21, mode="gtsam", filter_lidar=True, cfg=cfg,
                         device=dev)
@@ -758,7 +776,8 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     total = time.perf_counter() - t0
     launches = {"nn_argmin": nn_argmin.launches,
                 "icp_sweep_tail": icp_sweep_tail.launches,
-                "raywalk_build": raywalk_build.launches}
+                "raywalk_build": raywalk_build.launches,
+                "block_tridiag": block_tridiag.launches}
     n_scans, n_rays = pts21.shape[:2]
     print(f"[12] filtered gtsam (--filter_lidar), {n_scans} scans x {n_rays} "
           f"rays ({n_scans * n_rays ** 2 / 1e9:.2f} G DBSCAN point pairs): "
@@ -2269,6 +2288,82 @@ def sharded_phase(dev, cfg, d20, res5, log21, pts21, masks21) -> dict:
     return launches
 
 
+def k6_work(n: int, b: int, m: int, q: int):
+    """(bytes, float64 operations) of one K6 solve of float32 inputs: A, O
+    and R read once and X written; a multiply-add two operations, a b x b
+    product or Gauss-Jordan inversion 2 b^3 (csrc/tridiag.cu's
+    recurrences)."""
+    from lidar_slam_tpu_torch.kernels.tridiag import segments
+
+    qs, B = segments(n, q)
+    qi, M, cube = qs - 1, m + 2 * b, 2 * b ** 3
+    nbytes = 4 * ((2 * n - 1) * b * b + 2 * n * b * m)
+    ops = (B * qi * (cube + 6 * b * b * M)  # inverse, panel, back-substitution
+           + B * max(qi - 1, 0) * 2 * cube  # L = O G and A - L O^T
+           + B * (cube + 6 * b * b * m) + (B - 1) * 2 * cube  # interface
+           + B * (6 * cube + 4 * b * b * m)  # the interface terms
+           + B * (4 * b * b * m + qi * 4 * b * b * m))  # the interiors
+    return nbytes, ops
+
+
+def tridiag_phase(dev) -> dict:
+    """[18] block_tridiag (K6) at the offline cells' banded shape and at
+    direct_solve's (K6_SHAPES), float32 SPD systems: against its plain
+    version on the card (K6_RTOL of max |x|); timed in turns with the plain
+    version and with the op-by-op block_tridiag_solve (the LM's solve
+    before K6; no one PyTorch call solves a block-tridiagonal system, so no
+    library time); its three kernels' device time from torch.profiler; the
+    bound: its bytes over 3.35 TB/s or its float64 operations over 34
+    TFLOP/s. Returns the contract row."""
+    from lidar_slam_tpu_torch.kernels import tridiag
+    from lidar_slam_tpu_torch.models import pose_graph
+
+    row = {"name": "block_tridiag", "route": "cuda",
+           "source": "lidar_slam_tpu_torch/csrc/tridiag.cu",
+           "replaces": None, "library_ms": None}
+    g = torch.Generator(device=dev).manual_seed(18)
+    for tag, (n, b, m, q) in K6_SHAPES.items():
+        G = torch.randn((n, b, b), generator=g, device=dev)
+        A = (torch.eye(b, device=dev) * (4.0 + b) + 0.1 * (G + G.mT))
+        O = 0.3 * torch.randn((n - 1, b, b), generator=g, device=dev)
+        R = torch.randn((n, b, m), generator=g, device=dev)
+        got = tridiag.block_tridiag(A, O, R, q)
+        want = tridiag.block_tridiag_solve_plain(A, O, R, q)
+        ops_x = pose_graph._block_tridiag_ops(A, O, R, q)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        ops_err = float((ops_x - want).abs().max()) / float(want.abs().max())
+        if not err <= K6_RTOL:
+            fail(f"[18] block_tridiag differs from its plain version at "
+                 f"{tag} ({n}, {b}, {b}), m = {m}: {err:.3e} of max |x|")
+        ms, plain_ms, ops_ms = turns(
+            lambda: tridiag.block_tridiag_solve_plain(A, O, R, q),
+            lambda: tridiag.block_tridiag(A, O, R, q),
+            lambda: pose_graph._block_tridiag_ops(A, O, R, q), 20, 3)
+        passes = pass_ms(lambda: tridiag.block_tridiag(A, O, R, q), 20,
+                         ("k6_segments", "k6_interface", "k6_interiors"))
+        dev_ms = (None if None in passes.values()
+                  else sum(passes.values()))
+        nbytes, ops = k6_work(n, b, m, q)
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP64_OPS_S * 1e3
+        bnd = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                         "operations")
+        print(f"[18] block_tridiag {tag} ({n}, {b}, {b}), m = {m}, q = {q}: "
+              f"vs its plain version {err:.3e} of max |x| (op by op in "
+              f"float32 {ops_err:.3e}); kernel {ms:.4f} ms, device "
+              f"{fmt(dev_ms, 5)} (" + ", ".join(
+                  f"{k} {fmt(v, 5)}" for k, v in passes.items())
+              + f"); plain {plain_ms:.4f} ms; op by op {ops_ms:.4f} ms; "
+              f"bound {bnd[0]:.5f} ms ({bnd[1]}: {nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP float64)", flush=True)
+        sfx = "" if tag == "banded" else f"_{tag}"
+        row |= {f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
+                f"plain_ms{sfx}": plain_ms, f"op_ms{sfx}": ops_ms,
+                f"device_ms{sfx}": dev_ms, f"bound_ms{sfx}": bnd[0],
+                f"bound_by{sfx}": bnd[1]}
+    return row
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2293,6 +2388,7 @@ def main() -> int:
                                                       raywalk_bins_plain,
                                                       raywalk_build,
                                                       raywalk_scan)
+    from lidar_slam_tpu_torch.kernels.tridiag import LAUNCHES, block_tridiag
     from lidar_slam_tpu_torch.models import (occupancy, odometry, online,
                                              scan_matching, slam)
     from lidar_slam_tpu_torch.ops import icp as icp_ops
@@ -2358,14 +2454,15 @@ def main() -> int:
     slam.run_slam(*args, mode="gtsam", cfg=cfg, device=dev)  # warm-up
     torch.cuda.synchronize()
     nn_argmin.launches = icp_sweep_tail.launches = 0
-    raywalk_build.launches = 0
+    raywalk_build.launches = block_tridiag.launches = 0
     t0 = time.perf_counter()
     res = slam.run_slam(*args, mode="gtsam", cfg=cfg, device=dev)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {"nn_argmin": nn_argmin.launches,
                 "icp_sweep_tail": icp_sweep_tail.launches,
-                "raywalk_build": raywalk_build.launches}
+                "raywalk_build": raywalk_build.launches,
+                "block_tridiag": block_tridiag.launches}
     st = res.stage_seconds
     print("[5] main path gtsam, 4956 scans x 1081 rays: total "
           f"{total:.3f} s; " + ", ".join(f"{k} {v:.3f} s"
@@ -2381,6 +2478,8 @@ def main() -> int:
         fail(f"a kernel was not launched on the main path: {launches}")
     if launches["icp_sweep_tail"] != launches["nn_argmin"]:
         fail(f"[5] an ICP sweep missed the fused path: {launches}")
+    if launches["block_tridiag"] != LAUNCHES * res.lm_iterations:
+        fail(f"[5] an LM solve missed K6: {launches}")
     if res.poses.shape != (4956, 3) or not np.isfinite(res.poses).all():
         fail("main path poses are not finite (4956, 3)")
     if occ == 0 or free == 0:
@@ -2833,6 +2932,10 @@ def main() -> int:
     warm = warmup_phase(dev)
     # 17. the multi-rank layer
     launches_sh = sharded_phase(dev, cfg, d20, res, log21, pts21, masks21)
+    # 18. the pose graph's block-tridiagonal solve
+    k6_row = tridiag_phase(dev)
+    k6_row |= {"launches": launches["block_tridiag"],
+               "launches_filtered": launches_f["block_tridiag"]}
 
     print(card)
     # launches: the main paths' runs, gtsam [5] plus online [8]; the
@@ -2908,6 +3011,10 @@ def main() -> int:
          "library_ms": None, "device_ms": dev_scan,
          "launches_pf_reloc": launches_pf["raywalk_scan"],
          "launches_sharded": launches_sh["raywalk_scan"]},
+        # K6 replaces no Pallas kernel (the JAX solve is lax.scans) and no
+        # one PyTorch call computes it; op_ms is the op-by-op solve it
+        # replaced on the card
+        k6_row,
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

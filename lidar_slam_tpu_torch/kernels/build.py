@@ -116,6 +116,10 @@ def library() -> ctypes.CDLL:
     lib.slam_raywalk_scan.restype = i
     lib.slam_icp_sweep_tail.argtypes = [p] * 12 + [i, i, i, f, i, f, p]
     lib.slam_icp_sweep_tail.restype = i
+    lib.slam_block_tridiag.argtypes = [p] * 5 + [i64] + [i] * 5 + [p]
+    lib.slam_block_tridiag.restype = i
+    lib.slam_block_tridiag_scratch.argtypes = [i, i, i, i]
+    lib.slam_block_tridiag_scratch.restype = i64
     probes = {  # csrc/probes.cu, P1-P9
         "slam_probe_smem_stream": [p, i, p, i, i, p],
         "slam_probe_dynamic_store": [p, i, p, i, i, p],

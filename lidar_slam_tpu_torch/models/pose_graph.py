@@ -18,7 +18,9 @@ block-Jacobi preconditioned conjugate gradients. The Huber and Cauchy
 robust kernels reweight the loop factors (IRLS). The factor Jacobian blocks
 come from torch.func (jacfwd under vmap), one batched pass per LM step. The
 LM loop is a Python loop that reads its done flag once per iteration; CG
-reads its residual norm once per CG iteration.
+reads its residual norm once per CG iteration. On CUDA tensors the
+block-tridiagonal SPIKE solve behind "banded" and "direct" is K6
+(kernels/tridiag.py): three launches, float64 inside, no host read.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..config import PoseGraphConfig
+from ..kernels import tridiag
 from ..utils import se2, tracing
 
 
@@ -189,6 +192,14 @@ def _thomas(A, O, R):
     return torch.stack(x[::-1], dim=-3)
 
 
+def kernel_path(device: torch.device, dtype: torch.dtype, b: int) -> bool:
+    """Whether block_tridiag_solve runs K6 (kernels/tridiag.py) rather
+    than op by op: CUDA float32 or float64 tensors with blocks at most
+    kernels/tridiag.MAX_B wide."""
+    return (device.type == "cuda" and dtype in (torch.float32, torch.float64)
+            and b <= tridiag.MAX_B)
+
+
 def block_tridiag_solve(A, O, R, q: int = 64):
     """SPD block-tridiagonal solve T X = R, exact.
 
@@ -198,7 +209,20 @@ def block_tridiag_solve(A, O, R, q: int = 64):
     batched across segments, leaving a reduced block-tridiagonal system on
     the segment-end interface blocks. Sequential depth ~2(q + n/q) instead
     of 2n, with the same arithmetic as the dense factorization.
+
+    On the kernel path (kernel_path) the same split runs as K6, three
+    launches in float64 with no host read; elsewhere op by op in the
+    inputs' dtype.
     """
+    if kernel_path(A.device, A.dtype, A.shape[-1]):
+        tracing.count("pose_graph.solves_on_kernel")
+        return tridiag.block_tridiag(A.contiguous(), O.contiguous(),
+                                     R.contiguous(), q)
+    return _block_tridiag_ops(A, O, R, q)
+
+
+def _block_tridiag_ops(A, O, R, q: int):
+    """block_tridiag_solve op by op, in the inputs' dtype."""
     n, b, m = A.shape[0], A.shape[-1], R.shape[-1]
     if n <= 2 * q:
         return _thomas(A, O, R)
@@ -585,6 +609,7 @@ def optimize(
         # the CG warm start resets on an accepted step
         dx_prev = torch.where(accept, torch.zeros_like(dx), dx)
         it += 1
+        tracing.count("pose_graph.iterations")
         tracing.count("host.syncs")
         if bool(done):
             break
@@ -790,6 +815,7 @@ def optimize_sharded(
         done = (accept & ~improved) | (stalls >= 3) | (lam > 1e10)
         cost = torch.where(accept, cost_new, cost)
         it += 1
+        tracing.count("pose_graph.iterations")
         if bool(done):
             break
     return LMResult(poses=x, cost=cost, iterations=it, final_lambda=lam)

@@ -30,6 +30,11 @@ already holds. The counters:
                pose-graph span check, the map build's ray budget and bin
                total, the loss gate when its threshold is finite, and
                run_slam's copies of its results;
+  pose_graph.iterations  LM trips of models/pose_graph.optimize and
+               optimize_sharded (one linear solve each);
+  pose_graph.solves_on_kernel  block_tridiag_solve calls that K6
+               (kernels/tridiag.block_tridiag) served: CUDA tensors, blocks
+               at most 32 wide;
   filter.chunks  chunks of scans through ops/filters.dbscan_filter_scans
                (main.py --filter_lidar: 310 for 4,956 scans);
   filter.pairs   the pair tests those chunks make, scans x P x P.
@@ -162,10 +167,10 @@ def enabled() -> bool:
 
 def _launches() -> dict:
     """The kernel wrappers' own launch counts ("launches.<wrapper>")."""
-    from ..kernels import icp, nn, probes, raywalk
+    from ..kernels import icp, nn, probes, raywalk, tridiag
 
     return {f"launches.{name}": fn.launches
-            for mod in (nn, icp, raywalk, probes)
+            for mod in (nn, icp, raywalk, probes, tridiag)
             for name, fn in vars(mod).items()
             if callable(fn) and isinstance(getattr(fn, "launches", None),
                                            int)}

@@ -15,12 +15,13 @@ import torch
 from lidar_slam_tpu_torch.config import MapConfig
 from lidar_slam_tpu_torch.kernels import build, probes
 from lidar_slam_tpu_torch.kernels import icp as k5
+from lidar_slam_tpu_torch.kernels import tridiag as k6
 from lidar_slam_tpu_torch.kernels.nn import nn_argmin, nn_argmin_rounded
 from lidar_slam_tpu_torch.kernels import raywalk as rw
 from lidar_slam_tpu_torch.kernels.raywalk import (OWNER_SIDE, raywalk_bins,
                                                   raywalk_bins_plain,
                                                   raywalk_build, raywalk_scan)
-from lidar_slam_tpu_torch.models import occupancy, slam
+from lidar_slam_tpu_torch.models import occupancy, pose_graph, slam
 from lidar_slam_tpu_torch.ops import icp as icp_ops
 from lidar_slam_tpu_torch.ops.nn import gather_points, nearest_neighbors
 from lidar_slam_tpu_torch.ops.raywalk import scan_delta_raywalk
@@ -28,6 +29,7 @@ from lidar_slam_tpu_torch.tools import pallas_probe, scatter_microbench
 from lidar_slam_tpu_torch.tools import vpu_probe
 from lidar_slam_tpu_torch.utils import io, tracing
 from torch_icp_cases import fused_copy, icp_pairs, lockstep, pose_gap
+from torch_tridiag_cases import chain_graph, spd_chain
 from torch_vpu_tiles import retile
 
 pytestmark = pytest.mark.cuda
@@ -1078,3 +1080,123 @@ def test_icp_sweep_tail_rejects_bad_inputs(dev):
     torch.cuda.synchronize()
     assert k5.icp_sweep_tail.launches == launches + 1
     assert (c.k == 1).all()
+
+
+# -- block_tridiag, K6 (csrc/tridiag.cu) -------------------------------------
+
+@pytest.mark.parametrize("n,b,m,q", [
+    (496, 30, 1, 32),      # the offline cells' banded solve
+    (4956, 3, 1486, 64),   # direct_solve on dataset 20's 495 loops
+    (1, 30, 1, 32),        # one block
+    (9, 3, 2, 64),         # one segment (n <= 2q)
+    (150, 6, 4, 8),        # a ragged last segment
+    (77, 32, 3, 8),        # the widest block
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_tridiag_matches_plain(dev, n, b, m, q, dtype):
+    """K6 against its plain version on the card, both float64 inside: in
+    float64 within 1e-11 of max |x| (the same recurrences; only the order
+    of the sums differs, the kernel's fused multiply-adds against the plain
+    version's matmuls, on a well-conditioned system), in float32 within
+    1e-6 of it (each side rounds its float64 solution to float32 once, so
+    they part by at most an ulp); three launches a solve."""
+    A, O, R = (torch.as_tensor(a, dtype=dtype, device=dev)
+               for a in spd_chain(n, b, m, seed=n * b))
+    launches = k6.block_tridiag.launches
+    got = k6.block_tridiag(A, O, R, q)
+    want = k6.block_tridiag_solve_plain(A, O, R, q)
+    torch.cuda.synchronize()
+    assert k6.block_tridiag.launches == launches + k6.LAUNCHES
+    assert got.dtype == dtype and got.shape == (n, b, m)
+    scale = float(want.abs().max())
+    tol = (1e-11 if dtype is torch.float64 else 1e-6) * scale
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_block_tridiag_rejects_bad_inputs(dev):
+    A, O, R = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in spd_chain(40, 4, 2, seed=1))
+    wide = [torch.eye(33, device=dev).expand(5, 33, 33).contiguous(),
+            torch.zeros((4, 33, 33), device=dev),
+            torch.zeros((5, 33, 1), device=dev)]
+    bad = [((A.half(), O.half(), R.half()), "float32 or float64"),
+           ((A, O.double(), R), "O must be"),
+           ((A, O[:-1], R), "O must be"),
+           ((A, O, R[:-1]), "R must be"),
+           ((A, O, R.transpose(0, 1).contiguous().transpose(0, 1)),
+            "R must be contiguous"),
+           ((A, O.cpu(), R), "O must be contiguous on"),
+           (wide, "1 <= b <= 32")]
+    launches = k6.block_tridiag.launches
+    for args, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            k6.block_tridiag(*args, 8)
+    assert k6.block_tridiag.launches == launches
+
+
+def test_banded_lm_on_k6_against_op_by_op(dev, monkeypatch):
+    """optimize(solver="banded") on a seeded 4,956-pose chain with 495
+    fixed-interval loops, the offline cells' graph (496 super-blocks of
+    30 x 30): no torch.linalg.inv call, three K6 launches and one counted
+    solve an iteration. Held to the op-by-op path on the card: in float64
+    the poses within 1e-5 (the bound that tests/test_pose_graph.py sets
+    between two exact float64 solvers), the final cost within the LM's
+    cost_rtol (1e-9) of the op-by-op LM's, and the iterations within three
+    (the LM ends on the first step whose decrease falls under cost_rtol or
+    after three that do not improve, and near the optimum which step that
+    is turns on the last bits of the solve); in float32 the final cost
+    within 1% of the op-by-op LM's. A chain of 4,956
+    poses anchored at one end is conditioned near (4n/pi)^2, so a float32
+    LM stops metres from the float64 solution along its flattest
+    directions, wherever its solve rounds: the cost, which the benchmark
+    judges (pg_excess), is the float32 yardstick."""
+    inv_calls = []
+    real_inv = torch.linalg.inv
+
+    def counted_inv(*a, **k):
+        inv_calls.append(1)
+        return real_inv(*a, **k)
+
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        x0, g = chain_graph(4956, 10, seed=20, dtype=dtype, device=dev,
+                            noise=(2e-3, 2e-3, 1e-3))
+        monkeypatch.setattr(torch.linalg, "inv", counted_inv)
+        tracing.reset()
+        tracing.enable()
+        try:
+            launches = k6.block_tridiag.launches
+            got = pose_graph.optimize(x0, g, solver="banded", band=10)
+            torch.cuda.synchronize()
+            counts = tracing.snapshot()["counts"]
+        finally:
+            tracing.disable()
+            tracing.reset()
+        assert not inv_calls
+        assert k6.block_tridiag.launches - launches \
+            == k6.LAUNCHES * got.iterations
+        assert counts["pose_graph.solves_on_kernel"] == counts[
+            "pose_graph.iterations"] == got.iterations >= 2
+        monkeypatch.setattr(pose_graph, "kernel_path", lambda *a: False)
+        op = pose_graph.optimize(x0, g, solver="banded", band=10)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert inv_calls
+        inv_calls.clear()
+        res[dtype] = got, op
+    (k64, o64), (k32, o32) = res[torch.float64], res[torch.float32]
+
+    def gap(a, b):
+        return float((a.poses.double() - b.poses.double()).abs().max())
+
+    print(f"LM iterations: float64 K6 {k64.iterations}, op by op "
+          f"{o64.iterations}; float32 K6 {k32.iterations}, op by op "
+          f"{o32.iterations}. Costs: float64 {float(k64.cost):.9g}, "
+          f"{float(o64.cost):.9g}; float32 {float(k32.cost):.9g}, "
+          f"{float(o32.cost):.9g}. Max pose gaps: float64 K6 vs op "
+          f"{gap(k64, o64):.3e}; float32 K6 vs float64 {gap(k32, o64):.3e},"
+          f" op vs float64 {gap(o32, o64):.3e}")
+    assert abs(k64.iterations - o64.iterations) <= 3
+    assert gap(k64, o64) <= 1e-5
+    assert abs(float(k64.cost) - float(o64.cost)) <= 1e-9 * float(o64.cost)
+    assert float(k32.cost) <= 1.01 * float(o32.cost)

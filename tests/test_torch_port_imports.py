@@ -142,7 +142,8 @@ def test_library_path_hashes_every_csrc_file(tmp_path, monkeypatch):
     edited = build.library_path()
     assert len({base, added, edited}) == 3
     assert [p.name for p in build.sources()] == ["icp.cu", "nn.cu",
-                                                 "probes.cu", "raywalk.cu"]
+                                                 "probes.cu", "raywalk.cu",
+                                                 "tridiag.cu"]
     header.unlink()
     assert build.library_path() == base
 
@@ -223,7 +224,8 @@ def test_kernel_wrappers_launch_through_build_entry():
                 entries.add(path.name)
         assert "_cuda_get" not in src or path.name == "build.py", path.name
     assert device_calls == [("build.py", "Entry.__call__")]
-    assert entries == {"icp.py", "nn.py", "probes.py", "raywalk.py"}
+    assert entries == {"icp.py", "nn.py", "probes.py", "raywalk.py",
+                       "tridiag.py"}
 
 
 class _FakeLibrary:

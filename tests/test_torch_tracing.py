@@ -225,7 +225,7 @@ def test_run_slam_gtsam_sweeps_are_the_chunks_longest(log):
     assert len(root) == 1 and all(s.root == root[0].id for s in spans)
     assert sum(s.name == "icp.batch" for s in spans) == n_chunks
     assert sum(s.name == "pose_graph.solve" for s in spans) \
-        == res.lm_iterations
+        == res.lm_iterations == snap["counts"]["pose_graph.iterations"]
     stages = {s.name.split(".", 1)[1]: (s.end_ns - s.start_ns) * 1e-9
               for s in spans if s.parent == root[0].id}
     assert stages == res.stage_seconds
