@@ -16,11 +16,15 @@ same SPIKE solve over the chain alone with a Woodbury correction for the
 loop factors, exact for any loop topology (the revisit closures). "cg":
 block-Jacobi preconditioned conjugate gradients. The Huber and Cauchy
 robust kernels reweight the loop factors (IRLS). The factor Jacobian blocks
-come from torch.func (jacfwd under vmap), one batched pass per LM step. The
-LM loop is a Python loop that reads its done flag once per iteration; CG
-reads its residual norm once per CG iteration. On CUDA tensors the
-block-tridiagonal SPIKE solve behind "banded" and "direct" is K6
-(kernels/tridiag.py): three launches, float64 inside, no host read.
+come from torch.func (jacfwd under vmap), one batched pass per LM step.
+
+One LM core (_levenberg_marquardt: _linearize, _cost, _banded_system)
+serves optimize and the factor-sharded optimize_sharded, which pass in
+only how the damped system is solved and whether the cost goes through a
+psum. The loop reads its done flag once per iteration; CG reads its
+residual norm once per CG iteration. On CUDA tensors the block-tridiagonal
+SPIKE solve behind "banded" and "direct" is K6 (kernels/tridiag.py): three
+launches, float64 inside, no host read.
 """
 
 from __future__ import annotations
@@ -113,16 +117,11 @@ def _factor_r_and_J(pi, pj, meas, inv_sigmas):
 def residuals(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
     """Whitened residual vector of the whole graph (gated-out loop factors
     contribute exactly zero)."""
-    n = poses.shape[0]
-    r_prior = se2.log_se2(se2.inverse_T(se2.T_from_pose(g.prior_pose))
-                          @ se2.T_from_pose(poses[0])) / g.prior_sigmas
-    r_btw = _factor_residual(poses[:n - 1], poses[1:], g.between_meas,
-                             1.0 / g.between_sigmas)
-    r_loop = _factor_residual(poses[g.loop_i], poses[g.loop_j], g.loop_meas,
-                              1.0 / g.loop_sigmas)
-    r_loop = r_loop * g.loop_mask.to(poses.dtype)[:, None]
-    return torch.cat([r_prior.reshape(-1), r_btw.reshape(-1),
-                      r_loop.reshape(-1)])
+    p = _problem(poses, g)
+    return torch.cat([
+        _prior_residual(poses[0], p.T_prior_inv, p.inv_prior),
+        _set_residual(poses, p.btw).reshape(-1),
+        _set_residual(poses, p.loops).reshape(-1)])
 
 
 def graph_cost(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
@@ -160,13 +159,6 @@ def _inv3x3b(A):
     return adjT / det[..., None, None]
 
 
-def _binv(A):
-    """Batched block inverse: adjugate for 3x3 blocks, LU beyond."""
-    if A.shape[-1] == 3:
-        return _inv3x3b(A)
-    return torch.linalg.inv(A)
-
-
 def _thomas(A, O, R):
     """Block-tridiagonal solve T X = R by block LDL^T (Thomas).
 
@@ -176,13 +168,15 @@ def _thomas(A, O, R):
     """
     n = A.shape[-3]
     T_ = lambda x: x.transpose(-1, -2)  # noqa: E731
-    Dinv = [_binv(A[..., 0, :, :])]
+    # block inverses: adjugate for 3x3 blocks, LU beyond
+    binv = _inv3x3b if A.shape[-1] == 3 else torch.linalg.inv
+    Dinv = [binv(A[..., 0, :, :])]
     z = [R[..., 0, :, :]]
     L = []
     for i in range(1, n):
         O_p = O[..., i - 1, :, :]
         L_i = O_p @ Dinv[-1]
-        Dinv.append(_binv(A[..., i, :, :] - L_i @ T_(O_p)))
+        Dinv.append(binv(A[..., i, :, :] - L_i @ T_(O_p)))
         z.append(R[..., i, :, :] - L_i @ z[-1])
         L.append(L_i)
     w = torch.stack(Dinv, dim=-3) @ torch.stack(z, dim=-3)
@@ -273,8 +267,8 @@ def _block_tridiag_ops(A, O, R, q: int):
 
 
 def _banded_scatter(n: int, band: int, D, off_r, off_c, off_M):
-    """Scatter per-pose (3, 3) diagonal blocks D (n, 3, 3) and
-    off-diagonal pose-pair blocks off_M[f] = H[off_r[f], off_c[f]]
+    """Scatter per-pose (3, 3) diagonal blocks D (n or n_sup band, 3, 3)
+    and off-diagonal pose-pair blocks off_M[f] = H[off_r[f], off_c[f]]
     (off_r >= off_c, off_r - off_c <= band) into super-block tridiagonal
     storage: (A_sup (n_sup, 3 band, 3 band), O_sup (max(n_sup-1, 1), ...)).
     """
@@ -283,7 +277,7 @@ def _banded_scatter(n: int, band: int, D, off_r, off_c, off_M):
     bs = 3 * G
     ii = torch.arange(3, device=dev)[:, None]
     jj = torch.arange(3, device=dev)[None, :]
-    ar = torch.arange(n, device=dev)
+    ar = torch.arange(D.shape[0], device=dev)
     s_all, o_all = ar // G, ar % G
     A_sup = D.new_zeros((n_sup, bs, bs))
     A_sup.index_put_((s_all[:, None, None], (3 * o_all)[:, None, None] + ii,
@@ -306,17 +300,6 @@ def _banded_scatter(n: int, band: int, D, off_r, off_c, off_M):
                       c3 + jj), torch.where(adj[:, None, None], off_M, 0.0),
                      accumulate=True)
     return A_sup, O_sup
-
-
-def _banded_rhs(g, n: int, band: int):
-    """-g scattered into (n_sup, 3 band, 1) super-block RHS storage."""
-    G, dev = band, g.device
-    n_sup = -(-n // G)
-    ar = torch.arange(n, device=dev)
-    R = g.new_zeros((n_sup, 3 * G, 1))
-    R[(ar // G)[:, None], (3 * (ar % G))[:, None]
-      + torch.arange(3, device=dev), 0] = -g
-    return R
 
 
 def _loop_span_violation(loop_i: torch.Tensor, loop_j: torch.Tensor,
@@ -398,6 +381,235 @@ def cg_solve(matvec, b: torch.Tensor, x0: torch.Tensor, precond,
     return x
 
 
+class _Factors(NamedTuple):
+    """A factor set: pose pairs fi -> fj (F,), SE(2) measurements
+    (F, 3, 3), inverse sigmas (3,), a weight (F, 1) a factor or None."""
+
+    fi: torch.Tensor
+    fj: torch.Tensor
+    meas: torch.Tensor
+    inv_sigmas: torch.Tensor
+    weight: torch.Tensor | None
+
+
+class _Problem(NamedTuple):
+    """The graph as the LM core sees it: the prior (T_prior^-1 and its
+    inverse sigmas), the factor sets, the loops' robust kernel and width."""
+
+    T_prior_inv: torch.Tensor
+    inv_prior: torch.Tensor
+    btw: _Factors
+    loops: _Factors
+    robust: str
+    delta: float
+    eye3: torch.Tensor
+
+
+def _problem(x, graph: PoseGraph, robust: str = "none",
+             delta: float = 1.0) -> _Problem:
+    """The whole graph for poses x (n, 3), the loops weighted by their gate."""
+    dtype, dev = x.dtype, x.device
+    idx_i = torch.arange(x.shape[0] - 1, device=dev)
+    return _Problem(
+        T_prior_inv=se2.inverse_T(se2.T_from_pose(graph.prior_pose)),
+        inv_prior=1.0 / graph.prior_sigmas,
+        btw=_Factors(idx_i, idx_i + 1, graph.between_meas,
+                     1.0 / graph.between_sigmas, None),
+        loops=_Factors(graph.loop_i, graph.loop_j, graph.loop_meas,
+                       1.0 / graph.loop_sigmas,
+                       graph.loop_mask.to(dtype)[:, None]),
+        robust=robust, delta=delta,
+        eye3=torch.eye(3, dtype=dtype, device=dev))
+
+
+_jtj = lambda Ja, Jb: torch.einsum("bij,bik->bjk", Ja, Jb)  # noqa: E731
+_jtr = lambda J, r: torch.einsum("bij,bi->bj", J, r)  # noqa: E731
+_jv = lambda J, v: torch.einsum("bij,bj->bi", J, v)  # noqa: E731
+
+
+def _prior_residual(p, T_prior_inv, inv_prior):
+    """Whitened prior residual Log(T_prior^-1 T(p)) / sigma of pose p."""
+    return se2.log_se2(T_prior_inv @ se2.T_from_pose(p)) * inv_prior
+
+
+def _set_residual(x, f: _Factors):
+    """Whitened (and weighted) residuals (F, 3) of factor set f at x."""
+    r = _factor_residual(x[f.fi], x[f.fj], f.meas, f.inv_sigmas)
+    return r if f.weight is None else r * f.weight
+
+
+def _linearize(x, p: _Problem):
+    """(J, g): the Jacobian blocks (Jp, Jbi, Jbj, Jli, Jlj) of the prior,
+    between and loop factors at x, and the gradient J^T r (n, 3) summed in
+    that order. A robust kernel scales the loops' weighted blocks and
+    residuals by sqrt(w) (IRLS: every solver sees the reweighted system)."""
+    rp = _prior_residual(x[0], p.T_prior_inv, p.inv_prior)
+    Jp = jacfwd(_prior_residual)(x[0], p.T_prior_inv, p.inv_prior)
+    g = x.new_zeros(x.shape)
+    g[0] += Jp.T @ rp
+    J = [Jp]
+    for f, robust in ((p.btw, "none"), (p.loops, p.robust)):
+        r, Ji, Jj = _factor_r_and_J(x[f.fi], x[f.fj], f.meas, f.inv_sigmas)
+        if f.weight is not None:
+            w = f.weight
+            r, Ji, Jj = r * w, Ji * w[..., None], Jj * w[..., None]
+        if robust != "none":
+            w, _ = _robust_w_rho(torch.sum(r * r, dim=1), robust, p.delta)
+            sw = torch.sqrt(w)[:, None]
+            r, Ji, Jj = r * sw, Ji * sw[..., None], Jj * sw[..., None]
+        g.index_add_(0, f.fi, _jtr(Ji, r))
+        g.index_add_(0, f.fj, _jtr(Jj, r))
+        J += [Ji, Jj]
+    return tuple(J), g
+
+
+def _cost(x, p: _Problem, reduce=None):
+    """0.5 |r|^2 of the prior and between factors plus the loop factors'
+    (robust) cost at x; reduce (a psum) sums it across ranks."""
+    rp = _prior_residual(x[0], p.T_prior_inv, p.inv_prior)
+    rb = _set_residual(x, p.btw)
+    rl = _set_residual(x, p.loops)
+    if p.robust == "none":
+        loop_cost = 0.5 * torch.sum(rl * rl)
+    else:
+        _, rho = _robust_w_rho(torch.sum(rl * rl, dim=1), p.robust, p.delta)
+        loop_cost = torch.sum(rho)
+    cost = 0.5 * (torch.dot(rp, rp) + torch.sum(rb * rb)) + loop_cost
+    return cost if reduce is None else reduce(cost)
+
+
+def _diagonal_blocks(p: _Problem, J, lam, n: int, with_loops: bool = True):
+    """lam I plus the (3, 3) diagonal blocks of J^T J, per pose."""
+    Jp, Jbi, Jbj, Jli, Jlj = J
+    D = lam * p.eye3.expand(n, 3, 3).clone()
+    D[0] += Jp.T @ Jp
+    D.index_add_(0, p.btw.fi, _jtj(Jbi, Jbi))
+    D.index_add_(0, p.btw.fj, _jtj(Jbj, Jbj))
+    if with_loops:
+        D.index_add_(0, p.loops.fi, _jtj(Jli, Jli))
+        D.index_add_(0, p.loops.fj, _jtj(Jlj, Jlj))
+    return D
+
+
+def _banded_system(p: _Problem, J, lam, n: int, band: int,
+                   pad: bool = True):
+    """J^T J + lam I in super-block tridiagonal storage (A_sup, O_sup),
+    with the identity on the padded tail poses when `pad`."""
+    _, Jbi, Jbj, Jli, Jlj = J
+    D = _diagonal_blocks(p, J, lam, n)
+    if pad and n % band:
+        # padded tail poses: identity diagonal, zero coupling, zero rhs
+        D = torch.cat([D, p.eye3.expand(-n % band, 3, 3)])
+    return _banded_scatter(
+        n, band, D, torch.cat([p.btw.fj, p.loops.fj]),
+        torch.cat([p.btw.fi, p.loops.fi]),
+        torch.cat([_jtj(Jbj, Jbi), _jtj(Jlj, Jli)]))
+
+
+def _banded_solve(A_sup, O_sup, g, band: int):
+    """The step (n, 3) of the banded system (A_sup, O_sup) for the
+    gradient g (its rhs -g, zero on the padded tail poses)."""
+    n, n_sup = g.shape[0], A_sup.shape[0]
+    R = torch.cat([-g, g.new_zeros((n_sup * band - n, 3))]).reshape(
+        n_sup, 3 * band, 1)
+    X = block_tridiag_solve(A_sup, O_sup[:n_sup - 1], R, q=32)
+    return X.reshape(n_sup * band, 3)[:n]
+
+
+def _direct_solve(p: _Problem, J, g, lam):
+    """Exact Newton step: SPIKE over the chain's block-tridiagonal part of
+    J^T J + lam I with the right-hand sides [-g | U], U's columns the loop
+    Jacobians transposed (1 + 3L columns, every loop candidate, live or
+    not), then the Woodbury correction x = y_b - Y_u (I + U^T Y_u)^-1 U^T
+    y_b."""
+    Jp, Jbi, Jbj, Jli, Jlj = J
+    n, n_loops, dev = g.shape[0], Jli.shape[0], g.device
+    A = _diagonal_blocks(p, J, lam, n, False)
+    O = _jtj(Jbj, Jbi)  # O_i = H[i+1, i]
+    if n_loops:
+        R = g.new_zeros((n, 3, 1 + 3 * n_loops))
+        R[:, :, 0] = -g
+        rows = torch.arange(3, device=dev)[None, :, None]
+        cols = (1 + 3 * torch.arange(n_loops, device=dev)[:, None]
+                + torch.arange(3, device=dev)[None, :])[:, None, :]
+        R.index_put_((p.loops.fi[:, None, None], rows, cols),
+                     Jli.transpose(1, 2), accumulate=True)
+        R.index_put_((p.loops.fj[:, None, None], rows, cols),
+                     Jlj.transpose(1, 2), accumulate=True)
+    else:
+        R = (-g)[:, :, None]
+    Y = block_tridiag_solve(A, O, R)
+    yb = Y[:, :, 0]
+    if not n_loops:
+        return yb
+    UtY = (torch.einsum("lab,lbm->lam", Jli, Y[p.loops.fi])
+           + torch.einsum("lab,lbm->lam", Jlj, Y[p.loops.fj]))
+    UtY = UtY.reshape(3 * n_loops, -1)
+    S = torch.eye(3 * n_loops, dtype=g.dtype, device=dev) + UtY[:, 1:]
+    zc = torch.linalg.solve(S, UtY[:, 0])
+    return yb - torch.einsum("nim,m->ni", Y[:, :, 1:], zc)
+
+
+def _cg_step(p: _Problem, J, g, lam, x0, tol: float, maxiter: int):
+    """Block-Jacobi preconditioned CG on J^T J + lam I, from x0."""
+    Jp, Jbi, Jbj, Jli, Jlj = J
+    bi, bj, li, lj = p.btw.fi, p.btw.fj, p.loops.fi, p.loops.fj
+    Dinv = _inv3x3b(_diagonal_blocks(p, J, lam, g.shape[0]))
+
+    def matvec(v):
+        # u_f = J_i v_i + J_j v_j per factor; y_i += J_i^T u_f etc.
+        y = lam * v
+        y[0] += Jp.T @ (Jp @ v[0])
+        ub = _jv(Jbi, v[bi]) + _jv(Jbj, v[bj])
+        y.index_add_(0, bi, _jtr(Jbi, ub))
+        y.index_add_(0, bj, _jtr(Jbj, ub))
+        ul = _jv(Jli, v[li]) + _jv(Jlj, v[lj])
+        y.index_add_(0, li, _jtr(Jli, ul))
+        y.index_add_(0, lj, _jtr(Jlj, ul))
+        return y
+
+    return cg_solve(matvec, -g, x0,
+                    lambda v: torch.einsum("nij,nj->ni", Dinv, v), tol,
+                    maxiter)
+
+
+def _levenberg_marquardt(poses0, p: _Problem, solve, reduce, max_iters: int,
+                         lambda_init: float, lambda_up: float,
+                         lambda_down: float, cost_rtol: float) -> LMResult:
+    """The LM loop of optimize and optimize_sharded. solve(J, g, lam,
+    dx_prev) returns the damped system's step (dx_prev, CG's warm start:
+    the last rejected step, zero after an accepted one); reduce sums the
+    cost across ranks (None on one device). One done read an iteration."""
+    x, dev = poses0, poses0.device
+    lam = torch.tensor(lambda_init, dtype=poses0.dtype, device=dev)
+    cost = _cost(x, p, reduce)
+    stalls = torch.zeros((), dtype=torch.int64, device=dev)
+    dx_prev = torch.zeros_like(poses0)
+    it = 0
+    while it < max_iters:
+        J, g = _linearize(x, p)
+        with tracing.span("pose_graph.solve"):
+            dx = solve(J, g, lam, dx_prev)
+        x_new = x + dx
+        cost_new = _cost(x_new, p, reduce)
+        accept = cost_new < cost
+        x = torch.where(accept, x_new, x)
+        improved = (cost - cost_new) > cost_rtol * torch.clamp(cost, min=1.0)
+        lam = torch.where(accept, lam * lambda_down, lam * lambda_up)
+        stalls = torch.where(accept & improved, torch.zeros_like(stalls),
+                             stalls + 1)
+        done = (accept & ~improved) | (stalls >= 3) | (lam > 1e10)
+        cost = torch.where(accept, cost_new, cost)
+        # the CG warm start resets on an accepted step
+        dx_prev = torch.where(accept, torch.zeros_like(dx), dx)
+        it += 1
+        tracing.count("pose_graph.iterations")
+        tracing.count("host.syncs")
+        if bool(done):
+            break
+    return LMResult(poses=x, cost=cost, iterations=it, final_lambda=lam)
+
+
 def optimize(
     poses0: torch.Tensor,
     graph: PoseGraph,
@@ -432,188 +644,21 @@ def optimize(
     """
     if solver not in ("banded", "direct", "cg"):
         raise ValueError(f"unknown pose-graph solver {solver!r}")
-    if solver == "banded" and _loop_span_violation(
-            graph.loop_i, graph.loop_j, graph.loop_mask, band) is not None:
+    if solver == "banded" and not banded_exact(graph, band):
         solver = "direct"
     n = poses0.shape[0]
-    dtype, dev = poses0.dtype, poses0.device
-    idx_i = torch.arange(n - 1, device=dev)
-    idx_j = idx_i + 1
-    n_loops = int(graph.loop_i.shape[0])
-    inv_btw = 1.0 / graph.between_sigmas
-    inv_loop = 1.0 / graph.loop_sigmas
-    inv_prior = 1.0 / graph.prior_sigmas
-    T_prior_inv = se2.inverse_T(se2.T_from_pose(graph.prior_pose))
-    lw = graph.loop_mask.to(dtype)[:, None]
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    jtj = lambda Ja, Jb: torch.einsum("bij,bik->bjk", Ja, Jb)  # noqa: E731
-    jtr = lambda J, r: torch.einsum("bij,bi->bj", J, r)  # noqa: E731
-    jv = lambda J, v: torch.einsum("bij,bj->bi", J, v)  # noqa: E731
+    p = _problem(poses0, graph, robust, robust_delta)
 
-    def prior_residual(p):
-        return se2.log_se2(T_prior_inv @ se2.T_from_pose(p)) * inv_prior
+    def solve(J, g, lam, dx_prev):
+        if solver == "banded":
+            return _banded_solve(*_banded_system(p, J, lam, n, band), g, band)
+        if solver == "direct":
+            return _direct_solve(p, J, g, lam)
+        return _cg_step(p, J, g, lam, dx_prev, cg_tol, cg_iters)
 
-    def linearize(x):
-        rp = prior_residual(x[0])
-        Jp = jacfwd(prior_residual)(x[0])
-        rb, Jbi, Jbj = _factor_r_and_J(x[idx_i], x[idx_j],
-                                       graph.between_meas, inv_btw)
-        rl, Jli, Jlj = _factor_r_and_J(x[graph.loop_i], x[graph.loop_j],
-                                       graph.loop_meas, inv_loop)
-        rl = rl * lw
-        Jli = Jli * lw[..., None]
-        Jlj = Jlj * lw[..., None]
-        if robust != "none":
-            # IRLS: sqrt(w)-scaled loop blocks, so every solver sees the
-            # reweighted normal equations
-            w, _ = _robust_w_rho(torch.sum(rl * rl, dim=1), robust,
-                                 robust_delta)
-            sw = torch.sqrt(w)[:, None]
-            rl = rl * sw
-            Jli = Jli * sw[..., None]
-            Jlj = Jlj * sw[..., None]
-        g = x.new_zeros((n, 3))
-        g[0] += Jp.T @ rp
-        g.index_add_(0, idx_i, jtr(Jbi, rb))
-        g.index_add_(0, idx_j, jtr(Jbj, rb))
-        g.index_add_(0, graph.loop_i, jtr(Jli, rl))
-        g.index_add_(0, graph.loop_j, jtr(Jlj, rl))
-        return (Jp, Jbi, Jbj, Jli, Jlj), g
-
-    def cost_at(x):
-        rp = prior_residual(x[0])
-        rb = _factor_residual(x[idx_i], x[idx_j], graph.between_meas, inv_btw)
-        rl = _factor_residual(x[graph.loop_i], x[graph.loop_j],
-                              graph.loop_meas, inv_loop) * lw
-        if robust == "none":
-            loop_cost = 0.5 * torch.sum(rl * rl)
-        else:
-            _, rho = _robust_w_rho(torch.sum(rl * rl, dim=1), robust,
-                                   robust_delta)
-            loop_cost = torch.sum(rho)
-        return 0.5 * (torch.dot(rp, rp) + torch.sum(rb * rb)) + loop_cost
-
-    def diagonal_blocks(J, lam, with_loops: bool):
-        """lam I plus the (3, 3) diagonal blocks of J^T J, per pose."""
-        Jp, Jbi, Jbj, Jli, Jlj = J
-        D = lam * eye3.expand(n, 3, 3).clone()
-        D[0] += Jp.T @ Jp
-        D.index_add_(0, idx_i, jtj(Jbi, Jbi))
-        D.index_add_(0, idx_j, jtj(Jbj, Jbj))
-        if with_loops:
-            D.index_add_(0, graph.loop_i, jtj(Jli, Jli))
-            D.index_add_(0, graph.loop_j, jtj(Jlj, Jlj))
-        return D
-
-    def banded_solve(J, lam, g):
-        Jp, Jbi, Jbj, Jli, Jlj = J
-        G = band
-        n_sup = -(-n // G)
-        n_padded = n_sup * G
-        D = diagonal_blocks(J, lam, True)
-        off_r = torch.cat([idx_j, graph.loop_j])
-        off_c = torch.cat([idx_i, graph.loop_i])
-        off_M = torch.cat([jtj(Jbj, Jbi), jtj(Jlj, Jli)])
-        A_sup, O_sup = _banded_scatter(n, G, D, off_r, off_c, off_M)
-        if n_padded != n:
-            # padded tail poses: identity diagonal, zero coupling, zero rhs
-            pad = torch.arange(n, n_padded, device=dev)
-            A_sup.index_put_(
-                ((pad // G)[:, None, None],
-                 (3 * (pad % G))[:, None, None]
-                 + torch.arange(3, device=dev)[:, None],
-                 (3 * (pad % G))[:, None, None]
-                 + torch.arange(3, device=dev)[None, :]),
-                eye3.expand(n_padded - n, 3, 3), accumulate=True)
-        X = block_tridiag_solve(A_sup, O_sup[:n_sup - 1],
-                                _banded_rhs(g, n, G), q=32)
-        return X.reshape(n_padded, 3)[:n]
-
-    def direct_solve(J, lam, g):
-        """Exact Newton step: SPIKE over the chain's block-tridiagonal
-        part of J^T J + lam I with the right-hand sides [-g | U], U's
-        columns the loop Jacobians transposed (1 + 3L columns, every loop
-        candidate, live or not), then the Woodbury correction
-        x = y_b - Y_u (I + U^T Y_u)^-1 U^T y_b."""
-        Jp, Jbi, Jbj, Jli, Jlj = J
-        A = diagonal_blocks(J, lam, False)
-        O = jtj(Jbj, Jbi)  # O_i = H[i+1, i]
-        if n_loops:
-            R = g.new_zeros((n, 3, 1 + 3 * n_loops))
-            R[:, :, 0] = -g
-            rows = torch.arange(3, device=dev)[None, :, None]
-            cols = (1 + 3 * torch.arange(n_loops, device=dev)[:, None]
-                    + torch.arange(3, device=dev)[None, :])[:, None, :]
-            R.index_put_((graph.loop_i[:, None, None], rows, cols),
-                         Jli.transpose(1, 2), accumulate=True)
-            R.index_put_((graph.loop_j[:, None, None], rows, cols),
-                         Jlj.transpose(1, 2), accumulate=True)
-        else:
-            R = (-g)[:, :, None]
-        Y = block_tridiag_solve(A, O, R)
-        yb = Y[:, :, 0]
-        if not n_loops:
-            return yb
-        UtY = (torch.einsum("lab,lbm->lam", Jli, Y[graph.loop_i])
-               + torch.einsum("lab,lbm->lam", Jlj, Y[graph.loop_j]))
-        UtY = UtY.reshape(3 * n_loops, -1)
-        S = torch.eye(3 * n_loops, dtype=dtype, device=dev) + UtY[:, 1:]
-        zc = torch.linalg.solve(S, UtY[:, 0])
-        return yb - torch.einsum("nim,m->ni", Y[:, :, 1:], zc)
-
-    def cg_step(J, lam, g, x0):
-        Jp, Jbi, Jbj, Jli, Jlj = J
-        Dinv = _inv3x3b(diagonal_blocks(J, lam, True))
-
-        def matvec(v):
-            # u_f = J_i v_i + J_j v_j per factor; y_i += J_i^T u_f etc.
-            y = lam * v
-            y[0] += Jp.T @ (Jp @ v[0])
-            ub = jv(Jbi, v[idx_i]) + jv(Jbj, v[idx_j])
-            y.index_add_(0, idx_i, jtr(Jbi, ub))
-            y.index_add_(0, idx_j, jtr(Jbj, ub))
-            ul = jv(Jli, v[graph.loop_i]) + jv(Jlj, v[graph.loop_j])
-            y.index_add_(0, graph.loop_i, jtr(Jli, ul))
-            y.index_add_(0, graph.loop_j, jtr(Jlj, ul))
-            return y
-
-        return cg_solve(matvec, -g, x0,
-                        lambda v: torch.einsum("nij,nj->ni", Dinv, v),
-                        cg_tol, cg_iters)
-
-    x = poses0
-    lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
-    cost = cost_at(x)
-    stalls = torch.zeros((), dtype=torch.int64, device=dev)
-    dx_prev = torch.zeros_like(poses0)
-    it = 0
-    while it < max_iters:
-        J, g = linearize(x)
-        with tracing.span("pose_graph.solve"):
-            if solver == "banded":
-                dx = banded_solve(J, lam, g)
-            elif solver == "direct":
-                dx = direct_solve(J, lam, g)
-            else:
-                dx = cg_step(J, lam, g, dx_prev)
-        x_new = x + dx
-        cost_new = cost_at(x_new)
-        accept = cost_new < cost
-        x = torch.where(accept, x_new, x)
-        improved = (cost - cost_new) > cost_rtol * torch.clamp(cost, min=1.0)
-        lam = torch.where(accept, lam * lambda_down, lam * lambda_up)
-        stalls = torch.where(accept & improved, torch.zeros_like(stalls),
-                             stalls + 1)
-        done = (accept & ~improved) | (stalls >= 3) | (lam > 1e10)
-        cost = torch.where(accept, cost_new, cost)
-        # the CG warm start resets on an accepted step
-        dx_prev = torch.where(accept, torch.zeros_like(dx), dx)
-        it += 1
-        tracing.count("pose_graph.iterations")
-        tracing.count("host.syncs")
-        if bool(done):
-            break
-    return LMResult(poses=x, cost=cost, iterations=it, final_lambda=lam)
+    return _levenberg_marquardt(poses0, p, solve, None, max_iters,
+                                lambda_init, lambda_up, lambda_down,
+                                cost_rtol)
 
 
 def optimize_with_config(poses0: torch.Tensor, graph: PoseGraph,
@@ -644,6 +689,16 @@ def optimize_trajectory(
     return optimize_with_config(poses0, graph, cfg)
 
 
+def _require_banded(loop_i, loop_j, loop_mask, band: int, entry: str):
+    """Raise, naming `entry`, when a live loop lies outside [0, band]."""
+    bad = _loop_span_violation(loop_i, loop_j, loop_mask, band)
+    if bad is not None:
+        raise ValueError(
+            f"{entry} is banded-only: loop spans must lie in "
+            f"[0, band={band}], got [{bad[0]}, {bad[1]}] — use the "
+            "single-device solver='direct' path for wide or reversed arcs")
+
+
 def optimize_sharded(
     poses0: torch.Tensor,
     graph: PoseGraph,
@@ -662,160 +717,49 @@ def optimize_sharded(
     (parallel/mesh.Mesh); the program of one rank, every rank returning the
     same result.
 
-    Counterpart of the JAX package's optimize_sharded. Poses replicate.
-    The between and loop factor axes are padded to multiples of the axis
-    size with masked factors (zero residual and Jacobian blocks, so exact
-    no-ops), and each rank linearizes its contiguous shard and scatters it
-    through _banded_scatter, the helper of the single-device banded solve,
-    into a local gradient and local super-block (A, O). One psum an LM
-    iteration combines (A, O, g, cost), packed in one flat buffer; only
-    then are the prior, the damping lam I and the padding identity added,
-    so each counts once. The SPIKE solve and the accept and damping logic
-    run on every rank on the same summed bytes, so their control flow
-    cannot diverge; one more psum an iteration sums the trial cost.
+    Counterpart of the JAX package's optimize_sharded, on optimize's LM
+    core. Poses replicate. Each rank assembles a contiguous block of
+    ceil(F / axis size) factors of each set (the last may be shorter or
+    empty) through _banded_system into a local (A, O) and gradient g; rank
+    0 alone adds the prior, lam I and the padding identity, so each counts
+    once. One psum an LM iteration sums (A, O, g) in one flat buffer, and
+    the solve and the accept logic run on every rank on the same bytes, so
+    their control flow cannot diverge; one more psum sums the trial cost.
     Results match optimize(solver="banded") up to the reassociation of the
-    sums (within the shard, then across ranks); the iteration count can
-    differ by one where that moves the step at which the relative decrease
-    crosses cost_rtol.
+    sums; the iteration count can differ by one where that moves the step
+    at which the relative decrease crosses cost_rtol.
 
     Banded only: a live loop wider than `band`, or reversed, raises (the
     direct solver's Woodbury panel is not sharded).
     """
-    bad = _loop_span_violation(graph.loop_i, graph.loop_j, graph.loop_mask,
-                               band)
-    if bad is not None:
-        raise ValueError(
-            f"optimize_sharded is banded-only: loop spans must lie in "
-            f"[0, band={band}], got [{bad[0]}, {bad[1]}] — use the "
-            "single-device solver='direct' path for wide/reversed arcs")
+    _require_banded(graph.loop_i, graph.loop_j, graph.loop_mask, band,
+                    "optimize_sharded")
     from ..parallel.mesh import psum
 
     n = poses0.shape[0]
-    dtype, dev = poses0.dtype, poses0.device
     D, r = mesh.size(axis), mesh.index(axis)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    i64 = dict(dtype=torch.int64, device=dev)
+    lead = r == 0
 
-    def pad_factors(fi, fj, meas, mask, count):
-        """Factor arrays padded to `count` with masked identity factors
-        on pose 0, then this rank's contiguous shard."""
-        k = count - fi.shape[0]
-        fi = torch.cat([fi, torch.zeros(k, **i64)])
-        fj = torch.cat([fj, torch.zeros(k, **i64)])
-        meas = torch.cat([meas, eye3.expand(k, 3, 3)])
-        mask = torch.cat([mask, torch.zeros(k, dtype=torch.bool,
-                                            device=dev)])
-        b = count // D
+    def shard(f: _Factors) -> _Factors:
+        b = -(-f.fi.shape[0] // D)
         sl = slice(r * b, (r + 1) * b)
-        return fi[sl], fj[sl], meas[sl], mask[sl].to(dtype)
+        return f._replace(fi=f.fi[sl], fj=f.fj[sl], meas=f.meas[sl],
+                          weight=None if f.weight is None else f.weight[sl])
 
-    Bf = graph.between_meas.shape[0]
-    Bp = max(-(-Bf // D) * D, D)
-    bfi, bfj, bmeas, bw = pad_factors(
-        torch.arange(Bf, **i64), torch.arange(1, Bf + 1, **i64),
-        graph.between_meas, torch.ones(Bf, dtype=torch.bool, device=dev), Bp)
-    Lf = graph.loop_i.shape[0]
-    Lp = max(-(-max(Lf, 1) // D) * D, D)
-    lfi, lfj, lmeas, lw = pad_factors(graph.loop_i, graph.loop_j,
-                                      graph.loop_meas, graph.loop_mask, Lp)
+    p = _problem(poses0, graph, robust, robust_delta)
+    p = p._replace(inv_prior=p.inv_prior * float(lead), btw=shard(p.btw),
+                   loops=shard(p.loops))
 
-    G = band
-    n_sup = -(-n // G)
-    n_padded = n_sup * G
-    none = torch.zeros(0, **i64)
-    # the damping template: eye3 at every live pose's diagonal block
-    eye_live, _ = _banded_scatter(n, G, eye3.expand(n, 3, 3), none, none,
-                                  eye3.new_zeros((0, 3, 3)))
-    # padded-tail poses: identity diagonal, zero coupling, zero rhs
-    eye_pad = torch.zeros_like(eye_live)
-    for p in range(n, n_padded):
-        o = 3 * (p % G)
-        eye_pad[p // G, o:o + 3, o:o + 3] = eye3
-    inv_btw = 1.0 / graph.between_sigmas
-    inv_loop = 1.0 / graph.loop_sigmas
-    inv_prior = 1.0 / graph.prior_sigmas
-    T_prior_inv = se2.inverse_T(se2.T_from_pose(graph.prior_pose))
-    jtj = lambda Ja, Jb: torch.einsum("bij,bik->bjk", Ja, Jb)  # noqa: E731
-    jtr = lambda J, r_: torch.einsum("bij,bi->bj", J, r_)  # noqa: E731
-
-    def prior_residual(p):
-        return se2.log_se2(T_prior_inv @ se2.T_from_pose(p)) * inv_prior
-
-    def loop_blocks(rl, Jli=None, Jlj=None):
-        """Robust reweight and loop cost of the (masked) loop residuals."""
-        if robust == "none":
-            return rl, Jli, Jlj, 0.5 * torch.sum(rl * rl)
-        w, rho = _robust_w_rho(torch.sum(rl * rl, dim=1), robust,
-                               robust_delta)
-        sw = torch.sqrt(w)[:, None]
-        if Jli is not None:
-            Jli = Jli * sw[..., None]
-            Jlj = Jlj * sw[..., None]
-        return rl * sw, Jli, Jlj, torch.sum(rho)
-
-    def cost_at(x):
-        rb = _factor_residual(x[bfi], x[bfj], bmeas, inv_btw) * bw[:, None]
-        rl = _factor_residual(x[lfi], x[lfj], lmeas, inv_loop) * lw[:, None]
-        cost_loc = 0.5 * torch.sum(rb * rb) + loop_blocks(rl)[3]
-        rp = prior_residual(x[0])
-        return psum(cost_loc, mesh, axis) + 0.5 * torch.dot(rp, rp)
-
-    def linearize(x):
-        rb, Jbi, Jbj = _factor_r_and_J(x[bfi], x[bfj], bmeas, inv_btw)
-        rb, Jbi, Jbj = (rb * bw[:, None], Jbi * bw[:, None, None],
-                        Jbj * bw[:, None, None])
-        rl, Jli, Jlj = _factor_r_and_J(x[lfi], x[lfj], lmeas, inv_loop)
-        rl, Jli, Jlj = (rl * lw[:, None], Jli * lw[:, None, None],
-                        Jlj * lw[:, None, None])
-        rl, Jli, Jlj, loop_cost = loop_blocks(rl, Jli, Jlj)
-        cost_loc = 0.5 * torch.sum(rb * rb) + loop_cost
-        g = x.new_zeros((n, 3))
-        g.index_add_(0, bfi, jtr(Jbi, rb))
-        g.index_add_(0, bfj, jtr(Jbj, rb))
-        g.index_add_(0, lfi, jtr(Jli, rl))
-        g.index_add_(0, lfj, jtr(Jlj, rl))
-        Dg = x.new_zeros((n, 3, 3))
-        Dg.index_add_(0, bfi, jtj(Jbi, Jbi))
-        Dg.index_add_(0, bfj, jtj(Jbj, Jbj))
-        Dg.index_add_(0, lfi, jtj(Jli, Jli))
-        Dg.index_add_(0, lfj, jtj(Jlj, Jlj))
-        A, O = _banded_scatter(n, G, Dg, torch.cat([bfj, lfj]),
-                               torch.cat([bfi, lfi]),
-                               torch.cat([jtj(Jbj, Jbi), jtj(Jlj, Jli)]))
+    def solve(J, g, lam, dx_prev):
+        A, O = _banded_system(p, J, lam * float(lead), n, band, pad=lead)
         # the one fused collective of the iteration
-        flat = psum(torch.cat([A.reshape(-1), O.reshape(-1), g.reshape(-1),
-                               cost_loc.reshape(1)]), mesh, axis)
-        nA, nO = A.numel(), O.numel()
-        return (flat[:nA].reshape(A.shape),
-                flat[nA:nA + nO].reshape(O.shape),
-                flat[nA + nO:nA + nO + 3 * n].reshape(n, 3))
+        A_, O_, g_ = psum(torch.cat([A.reshape(-1), O.reshape(-1),
+                                     g.reshape(-1)]), mesh, axis).split(
+            [A.numel(), O.numel(), g.numel()])
+        return _banded_solve(A_.view(A.shape), O_.view(O.shape),
+                             g_.view(g.shape), band)
 
-    x = poses0
-    lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
-    cost = cost_at(x)
-    stalls = torch.zeros((), dtype=torch.int64, device=dev)
-    it = 0
-    while it < max_iters:
-        A, O, g = linearize(x)
-        rp = prior_residual(x[0])
-        Jp = jacfwd(prior_residual)(x[0])
-        g[0] += Jp.T @ rp
-        A = A + lam * eye_live + eye_pad
-        A[0, 0:3, 0:3] += Jp.T @ Jp
-        X = block_tridiag_solve(A, O[:n_sup - 1], _banded_rhs(g, n, G),
-                                q=32)
-        x_new = x + X.reshape(n_padded, 3)[:n]
-        cost_new = cost_at(x_new)
-        accept = cost_new < cost
-        x = torch.where(accept, x_new, x)
-        improved = (cost - cost_new) > cost_rtol * torch.clamp(cost, min=1.0)
-        lam = torch.where(accept, lam * lambda_down, lam * lambda_up)
-        stalls = torch.where(accept & improved, torch.zeros_like(stalls),
-                             stalls + 1)
-        done = (accept & ~improved) | (stalls >= 3) | (lam > 1e10)
-        cost = torch.where(accept, cost_new, cost)
-        it += 1
-        tracing.count("pose_graph.iterations")
-        if bool(done):
-            break
-    return LMResult(poses=x, cost=cost, iterations=it, final_lambda=lam)
+    return _levenberg_marquardt(poses0, p, solve,
+                                lambda c: psum(c, mesh, axis), max_iters,
+                                lambda_init, lambda_up, lambda_down,
+                                cost_rtol)

@@ -282,13 +282,8 @@ def sharded_optimize_trajectory(mesh: Mesh, cfg=None, axis: str = "dp"):
 
     def run(poses0, relative_poses, loop_i, loop_j, loop_meas, loop_mask):
         band = cfg.fixed_interval
-        bad = pg._loop_span_violation(loop_i, loop_j, loop_mask, band)
-        if bad is not None:
-            raise ValueError(
-                f"sharded_optimize_trajectory is banded-only: loop spans "
-                f"must lie in [0, band={band}], got [{bad[0]}, {bad[1]}] — "
-                "use the single-device solver='direct' path for wide or "
-                "reversed arcs")
+        pg._require_banded(loop_i, loop_j, loop_mask, band,
+                           "sharded_optimize_trajectory")
         graph = pg.make_graph(relative_poses, cfg, loop_i=loop_i,
                               loop_j=loop_j, loop_meas=loop_meas,
                               loop_mask=loop_mask)

@@ -25,13 +25,16 @@ already holds. The counters:
                one icp_sweep_tail launch);
   host.syncs   reads of a device value back to the host by the port's own
                code on the gtsam path with fixed-interval loops, in
-               online_step and in pf_step (which makes none): the ICP
-               `done` read, the LM `done` and CG residual reads, the
+               online_step, in pf_step (which makes none) and in
+               models/pose_graph.optimize_sharded: the ICP `done` read,
+               the LM `done` read (one a trip of the LM core both
+               pose-graph entry points share) and CG residual reads, the
                pose-graph span check, the map build's ray budget and bin
                total, the loss gate when its threshold is finite, and
                run_slam's copies of its results;
   pose_graph.iterations  LM trips of models/pose_graph.optimize and
-               optimize_sharded (one linear solve each);
+               optimize_sharded (one linear solve each, in a
+               `pose_graph.solve` span);
   pose_graph.solves_on_kernel  block_tridiag_solve calls that K6
                (kernels/tridiag.block_tridiag) served: CUDA tensors, blocks
                at most 32 wide;

@@ -196,9 +196,9 @@ def _inputs() -> dict:
                      rng.standard_normal((47, n_p)).astype(np.float32),
                      rng.random(47).astype(np.float32)))
 
-    # pose graphs (float64): 53 poses (52 between factors pad to 52, 5
-    # loops to 8 on 4 ranks), 41 with no loops, 64 with a corrupted arc
-    # under Huber, and a wide live arc
+    # pose graphs (float64): 53 poses (52 between factors, 13 a rank, and
+    # 5 loops on 4 ranks), 41 with no loops, 64 with a corrupted arc under
+    # Huber, and a wide live arc
     loops53 = _pg_problem(np.random.default_rng(3), 53)
     chain = _pg_problem(np.random.default_rng(11), 41)
     chain["loops"] = (np.zeros(0, np.int64), np.zeros(0, np.int64),
@@ -581,8 +581,11 @@ def _jax_pose_graph(name, c):
 @pytest.mark.parametrize("name", ["loops53", "no_loops", "robust"])
 def test_optimize_sharded(inputs, ranked, name):
     """Factor-sharded LM in float64 against the single-device banded solve
-    and JAX's sharded solve: 53 poses pad both factor axes, 41 carry no
-    loop at all, and 64 carry a corrupted live arc under Huber."""
+    and JAX's sharded solve: 53 poses leave the ranks uneven loop blocks
+    (5 loops: 2, 2, 1, 0), 41 carry no loop at all, and 64 carry a
+    corrupted live arc under Huber.
+    Each LM trip counts one pose_graph.iterations, one pose_graph.solve
+    span and one host.syncs (its done read), as optimize's do."""
     c = inputs["pose_graph"]["cases"][name]
     got = ranked[f"pg_{name}"]
     li, lj, lmeas, lmask = map(T, c["loops"])
@@ -606,6 +609,13 @@ def test_optimize_sharded(inputs, ranked, name):
         assert abs(float(got.cost) - float(ref.cost)) <= max(
             PG_COST_RTOL * float(ref.cost), 1e-7)
     assert got.iterations > 1
+    counts, spans = ranked[f"pg_{name}_traced"]
+    assert counts["pose_graph.iterations"] == got.iterations
+    assert spans.count("pose_graph.solve") == got.iterations
+    # beside the done reads, the span check's three reads of a graph with
+    # live loops, made twice through sharded_optimize_trajectory
+    checks = {"loops53": 3, "no_loops": 0, "robust": 6}[name]
+    assert counts["host.syncs"] == got.iterations + checks
 
 
 @pytest.mark.parametrize("entry", ["optimize_sharded",

@@ -15,6 +15,7 @@ from lidar_slam_tpu_torch.config import (CameraConfig, IcpConfig, MapConfig,
                                          PoseGraphConfig)
 from lidar_slam_tpu_torch.parallel import mesh as mesh_lib
 from lidar_slam_tpu_torch.parallel import sharding
+from lidar_slam_tpu_torch.utils import tracing
 
 T = torch.from_numpy
 
@@ -133,6 +134,8 @@ def parallel_cases(device: torch.device, inp: dict) -> dict:
     g = inp["pose_graph"]
     for name, kw in g["cases"].items():
         li, lj, lmeas, lmask = (T(a) for a in kw["loops"])
+        tracing.reset()
+        tracing.enable()
         if name == "robust":
             cfg_pg = PoseGraphConfig(**kw["cfg"])
             res = sharding.sharded_optimize_trajectory(m1, cfg_pg)(
@@ -142,7 +145,11 @@ def parallel_cases(device: torch.device, inp: dict) -> dict:
                                   loop_meas=lmeas, loop_mask=lmask)
             res = pg.optimize_sharded(T(kw["poses0"]), graph, m1, band=10,
                                       max_iters=30, cost_rtol=1e-9)
+        snap = tracing.snapshot()
+        tracing.disable()
         out[f"pg_{name}"] = res
+        out[f"pg_{name}_traced"] = (
+            snap["counts"], [s.name for s in snap["spans"]])
     wide = g["wide"]
     li, lj, lmeas, lmask = (T(a) for a in wide["loops"])
     graph = pg.make_graph(T(wide["rel"]), loop_i=li, loop_j=lj,
