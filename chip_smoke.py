@@ -166,7 +166,18 @@ first failure and catches nothing):
      float32: against its plain version on the card, then timed in turns
      with the plain version and the op-by-op block_tridiag_solve, and its
      three kernels under torch.profiler. [5] and [12] gate K6's launches
-     at three an LM iteration.
+     at three an LM iteration;
+ 19. the LM's factor work (K7, factors_phase: lm_linearize,
+     lm_banded_system, lm_cost) at the offline cells' shape (4,956 poses,
+     495 fixed-interval loops, about 150 live, band 10), float32 and
+     float64: each entry against its plain version on the card, then timed
+     by CUDA events and torch.profiler beside its plain version and the
+     op-by-op function it replaced (_linearize, _banded_system, _cost
+     called by name), with its bound; the device launches and host reads
+     of one banded LM iteration; one whole float32 optimize at the
+     filtered cell's LM schedule with K7 and op by op on the same card.
+     [5] and [12] gate K7's launches at one linearization, one assembly
+     and one cost an LM iteration (and the first cost).
 
 The last three lines are the card's `name, power.limit`, a JSON object with
 each kernel's launch count on its path ([5] and [8] for K1, K2, K4 and K5
@@ -184,7 +195,9 @@ also at B = 1 and on [15] (c)'s polish inputs, with whole sweeps' times;
 P1-P6 and nn_argmin at B = 1
 with their host split; P9 also with the probe tool's slopes;
 block_tridiag also at direct_solve's shape, beside the op-by-op solve, its
-bound by float64 operations over 34 TFLOP/s, and with [12]'s launches), and
+bound by float64 operations over 34 TFLOP/s, and with [12]'s launches;
+lm_factors, K7's three entries together, beside the op-by-op functions,
+with each entry's time and bound and [12]'s launches), and
 {"ok": true, "device": ...}.
 """
 
@@ -222,6 +235,18 @@ K6_RTOL = 1e-6
 # [18]: the offline cells' banded solve (fixed_interval 10 on 4,956 poses)
 # and direct_solve on dataset 20's 495 fixed-interval loops: (n, b, m, q)
 K6_SHAPES = {"banded": (496, 30, 1, 32), "direct": (4956, 3, 1 + 3 * 495, 64)}
+# [19] K7 against its plain version on the card, both float64 inside:
+# float64 within 1e-11 (the theta column's d(sin w / w)/dw cancels at
+# small |omega|, so an ulp between CUDA's and the host's cosines reads
+# 1e-12 of a block), float32 within 1e-6 (each side rounds once); the
+# blocks relative to their largest entry, g and R to max(max |g|, 1), the
+# cost to max(cost, 1) (tests/test_torch_kernels.py's bounds)
+K7_RTOL = {torch.float64: 1e-11, torch.float32: 1e-6}
+K7_MAX_LAUNCHES = 60  # device launches of one banded LM iteration
+# float64 operations of one factor's residual and blocks (the closed form
+# of csrc/factors.cu: about 150 multiply-adds and divisions, and sincos x 3
+# and atan2 at about 20 each); a residual alone about 100
+K7_FACTOR_OPS, K7_RESIDUAL_OPS = 250, 100
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -760,6 +785,7 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     from lidar_slam_tpu_torch.kernels.nn import nn_argmin
     from lidar_slam_tpu_torch.kernels.raywalk import raywalk_build
     from lidar_slam_tpu_torch.kernels.tridiag import block_tridiag
+    from lidar_slam_tpu_torch.kernels import factors as k7
     from lidar_slam_tpu_torch.models import occupancy, slam
     from lidar_slam_tpu_torch.ops import filters
 
@@ -769,6 +795,8 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     torch.cuda.synchronize()
     nn_argmin.launches = icp_sweep_tail.launches = 0
     raywalk_build.launches = block_tridiag.launches = 0
+    k7.lm_linearize.launches = k7.lm_banded_system.launches = 0
+    k7.lm_cost.launches = 0
     t0 = time.perf_counter()
     res = slam.run_slam(*log21, mode="gtsam", filter_lidar=True, cfg=cfg,
                         device=dev)
@@ -777,7 +805,8 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
     launches = {"nn_argmin": nn_argmin.launches,
                 "icp_sweep_tail": icp_sweep_tail.launches,
                 "raywalk_build": raywalk_build.launches,
-                "block_tridiag": block_tridiag.launches}
+                "block_tridiag": block_tridiag.launches,
+                **k7_launches()}
     n_scans, n_rays = pts21.shape[:2]
     print(f"[12] filtered gtsam (--filter_lidar), {n_scans} scans x {n_rays} "
           f"rays ({n_scans * n_rays ** 2 / 1e9:.2f} G DBSCAN point pairs): "
@@ -786,6 +815,8 @@ def filtered_phase(dev, log21, pts21, masks21, cfg) -> dict:
           + f"; launches {launches}", flush=True)
     if min(launches.values()) == 0:
         fail(f"a kernel was not launched on the filtered path: {launches}")
+    if not k7_launches_ok(launches, res.lm_iterations):
+        fail(f"[12] an LM iteration's factor work missed K7: {launches}")
     if res.poses.shape != (n_scans, 3) or not np.isfinite(res.poses).all():
         fail("the filtered run's poses are not finite")
 
@@ -2364,6 +2395,194 @@ def tridiag_phase(dev) -> dict:
     return row
 
 
+def k7_launches() -> dict:
+    """The launch counters of K7's three entries."""
+    from lidar_slam_tpu_torch.kernels import factors as k7
+
+    return {"lm_linearize": k7.lm_linearize.launches,
+            "lm_banded_system": k7.lm_banded_system.launches,
+            "lm_cost": k7.lm_cost.launches}
+
+
+def k7_launches_ok(launches: dict, iterations: int) -> bool:
+    """One K7 linearization and one banded assembly an LM iteration, and
+    one cost an iteration plus the first."""
+    return (launches["lm_linearize"] == launches["lm_banded_system"]
+            == iterations >= 1 and launches["lm_cost"] == iterations + 1)
+
+
+def k7_work(fg, band: int, itemsize: int) -> dict:
+    """{entry: (bytes, float64 operations)} of K7's entries on the graph
+    fg: each input byte read once and each output byte written once (the
+    poses, measurements, gates and index; the blocks, the gradient, A_sup,
+    O_sup and R); the operations from K7_FACTOR_OPS and K7_RESIDUAL_OPS a
+    factor evaluation (lm_linearize evaluates each factor on both of its
+    poses) and 2 x 27 a 3 x 3 block product of the assembly."""
+    n, F = fg.n, fg.fi.shape[0]
+    n_sup = -(-n // band)
+    n_o = max(n_sup - 1, 1)
+    index = 4 * (2 * F + (n + 1) + 2 * F)  # fi, fj, start, entries
+    graph = itemsize * (9 * F + (F - fg.nb) + 18) + index
+    blocks = itemsize * 9 * (1 + 2 * F)
+    system = itemsize * ((n_sup + n_o) * 9 * band * band + 3 * band * n_sup)
+    return {
+        "lm_linearize": (itemsize * 3 * n + graph + blocks + itemsize * 3 * n,
+                         2 * F * K7_FACTOR_OPS + 6 * 2 * F),
+        "lm_banded_system": (blocks + itemsize * 3 * n + index + system,
+                             (4 * F + 1) * 54 + n * 3),
+        "lm_cost": (itemsize * 3 * n + graph + itemsize,
+                    F * K7_RESIDUAL_OPS + 2 * F),
+    }
+
+
+def factors_phase(dev) -> dict:
+    """[19] K7 (kernels/factors.py) on the offline cells' graph shape
+    (tests/torch_tridiag_cases.FACTOR_CASES["cells"]): each entry against
+    its plain version (K7_RTOL), in float32 and float64; in float32, each
+    entry timed in turns with its plain version and with the op-by-op
+    function it replaced on the card, its kernel's device time from
+    torch.profiler, its bound (bytes over 3.35 TB/s or float64 operations
+    over 34 TFLOP/s); the device launches of one banded LM iteration
+    (torch.profiler over optimize runs of 2 and 5 iterations, cost_rtol
+    0) and its host reads (host.syncs); one float32 optimize at the
+    pipeline's LM schedule (SlamConfig().pose_graph, band 10) with K7 and
+    again op by op, on the same card. Returns the contract row."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_slam_tpu_torch.config import SlamConfig
+    from lidar_slam_tpu_torch.kernels import factors as k7
+    from lidar_slam_tpu_torch.models import pose_graph
+    from lidar_slam_tpu_torch.utils import tracing
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_tridiag_cases import factor_case, k7_gaps
+
+    row = {"name": "lm_factors", "route": "cuda",
+           "source": "lidar_slam_tpu_torch/csrc/factors.cu",
+           "replaces": None, "library_ms": None}
+    entries = ("lm_linearize", "lm_banded_system", "lm_cost")
+    for dtype in (torch.float64, torch.float32):
+        x, g, robust, band = factor_case("cells", dtype, dev)
+        p = pose_graph._problem(x, g, robust, 1.0)
+        fg = pose_graph._on_kernel(p, x.shape[0]).kernel
+        lam = torch.tensor(1e-3, dtype=dtype, device=dev)
+        J, gr = k7.lm_linearize(fg, x)
+        system = k7.lm_banded_system(fg, J, gr, lam, band)
+        c = k7.lm_cost(fg, x)
+        gaps = k7_gaps((J, gr), system, c, k7.lm_linearize_plain(fg, x),
+                       k7.lm_banded_system_plain(fg, J, gr, lam, band),
+                       k7.lm_cost_plain(fg, x), band)
+        errs = {"lm_linearize": max(gaps["J"], gaps["g"]),
+                "lm_banded_system": max(gaps["A"], gaps["O"], gaps["R"]),
+                "lm_cost": gaps["cost"]}
+        tag = "float64" if dtype is torch.float64 else "float32"
+        print(f"[19] K7 {tag} vs its plain versions, {x.shape[0]} poses, "
+              f"{len(g.loop_i)} loops ({int(g.loop_mask.sum())} live): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              flush=True)
+        if max(errs.values()) > K7_RTOL[dtype]:
+            fail(f"[19] K7 differs from its plain versions in {tag}: {errs}")
+        row[f"max_abs_err_{tag}"] = max(errs.values())
+    # float32, the cells' dtype: times
+    J_op, g_op = pose_graph._linearize(x, p)
+    n = x.shape[0]
+    calls = {
+        "lm_linearize": (lambda: k7.lm_linearize_plain(fg, x),
+                         lambda: k7.lm_linearize(fg, x),
+                         lambda: pose_graph._linearize(x, p)),
+        "lm_banded_system": (
+            lambda: k7.lm_banded_system_plain(fg, J, gr, lam, band),
+            lambda: k7.lm_banded_system(fg, J, gr, lam, band),
+            lambda: pose_graph._banded_system(p, J_op, g_op, lam, n, band)),
+        "lm_cost": (lambda: k7.lm_cost_plain(fg, x),
+                    lambda: k7.lm_cost(fg, x),
+                    lambda: pose_graph._cost(x, p)),
+    }
+    kernels = {"lm_linearize": "k7_linearize",
+               "lm_banded_system": "k7_banded", "lm_cost": "k7_cost"}
+    work = k7_work(fg, band, 4)
+    totals = dict.fromkeys(("ms", "plain_ms", "op_ms", "device_ms",
+                            "bound_ms"), 0.0)
+    for name in entries:
+        plain, kernel, op = calls[name]
+        ms, plain_ms, op_ms = turns(plain, kernel, op, 20, 3)
+        dev_ms = device_ms(kernel, 20, kernels[name])
+        nbytes, ops = work[name]
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP64_OPS_S * 1e3
+        bnd = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                         "operations")
+        print(f"[19] {name} float32: kernel {ms:.4f} ms, device "
+              f"{fmt(dev_ms, 5)}; plain {plain_ms:.4f} ms; op by op "
+              f"{op_ms:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}: "
+              f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.2f} MFLOP float64)",
+              flush=True)
+        row |= {f"ms_{name}": ms, f"plain_ms_{name}": plain_ms,
+                f"op_ms_{name}": op_ms, f"device_ms_{name}": dev_ms,
+                f"bound_ms_{name}": bnd[0], f"bound_by_{name}": bnd[1]}
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("op_ms", op_ms),
+                       ("device_ms", dev_ms), ("bound_ms", bnd[0])):
+            totals[key] = None if v is None or totals[key] is None else (
+                totals[key] + v)
+    row |= totals
+    row["bound_by"] = "bytes"
+
+    def lm_run(iters):
+        """(device launches, host reads) of a banded optimize of iters
+        LM iterations."""
+        tracing.reset()
+        tracing.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res = pose_graph.optimize(x, g, solver="banded", band=band,
+                                          max_iters=iters, cost_rtol=0.0)
+                torch.cuda.synchronize()
+            syncs = tracing.snapshot()["counts"].get("host.syncs", 0)
+        finally:
+            tracing.disable()
+            tracing.reset()
+        if res.iterations != iters:
+            fail(f"[19] the LM stopped after {res.iterations} of {iters}")
+        return (sum(ev.count for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA), syncs)
+
+    lm_run(2)
+    (l2, s2), (l5, s5) = lm_run(2), lm_run(5)
+    per_it, reads = (l5 - l2) / 3, (s5 - s2) / 3
+    print(f"[19] one banded LM iteration (float32, cells' shape): "
+          f"{per_it:.2f} device launches, {reads:.2f} host reads "
+          f"(bound {K7_MAX_LAUNCHES} launches, 1 read)", flush=True)
+    if not (per_it <= K7_MAX_LAUNCHES and reads == 1):
+        fail(f"[19] an LM iteration takes {per_it} launches and {reads} "
+             "host reads")
+    row |= {"launches_lm_iteration": per_it, "host_reads_lm_iteration": reads}
+
+    pg = SlamConfig().pose_graph
+    walls = {}
+    for tag, on in (("K7", True), ("op by op", False), ("K7 again", True)):
+        rule = pose_graph.factor_kernel_path
+        if not on:
+            pose_graph.factor_kernel_path = lambda *a: False
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pose_graph.optimize_with_config(x, g, pg)
+            torch.cuda.synchronize()
+            walls[tag] = (time.perf_counter() - t0, res.iterations,
+                          float(res.cost))
+        finally:
+            pose_graph.factor_kernel_path = rule
+    print("[19] optimize_with_config, float32, band 10, cells' shape: "
+          + "; ".join(f"{k} {w:.4f} s, {it} LM iterations, cost {c:.9g}"
+                      for k, (w, it, c) in walls.items()), flush=True)
+    row |= {"optimize_s": walls["K7 again"][0],
+            "optimize_op_s": walls["op by op"][0],
+            "optimize_iterations": walls["K7 again"][1],
+            "optimize_op_iterations": walls["op by op"][1]}
+    return row
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2389,6 +2608,7 @@ def main() -> int:
                                                       raywalk_build,
                                                       raywalk_scan)
     from lidar_slam_tpu_torch.kernels.tridiag import LAUNCHES, block_tridiag
+    from lidar_slam_tpu_torch.kernels import factors as k7
     from lidar_slam_tpu_torch.models import (occupancy, odometry, online,
                                              scan_matching, slam)
     from lidar_slam_tpu_torch.ops import icp as icp_ops
@@ -2455,6 +2675,8 @@ def main() -> int:
     torch.cuda.synchronize()
     nn_argmin.launches = icp_sweep_tail.launches = 0
     raywalk_build.launches = block_tridiag.launches = 0
+    k7.lm_linearize.launches = k7.lm_banded_system.launches = 0
+    k7.lm_cost.launches = 0
     t0 = time.perf_counter()
     res = slam.run_slam(*args, mode="gtsam", cfg=cfg, device=dev)
     torch.cuda.synchronize()
@@ -2462,7 +2684,8 @@ def main() -> int:
     launches = {"nn_argmin": nn_argmin.launches,
                 "icp_sweep_tail": icp_sweep_tail.launches,
                 "raywalk_build": raywalk_build.launches,
-                "block_tridiag": block_tridiag.launches}
+                "block_tridiag": block_tridiag.launches,
+                **k7_launches()}
     st = res.stage_seconds
     print("[5] main path gtsam, 4956 scans x 1081 rays: total "
           f"{total:.3f} s; " + ", ".join(f"{k} {v:.3f} s"
@@ -2480,6 +2703,8 @@ def main() -> int:
         fail(f"[5] an ICP sweep missed the fused path: {launches}")
     if launches["block_tridiag"] != LAUNCHES * res.lm_iterations:
         fail(f"[5] an LM solve missed K6: {launches}")
+    if not k7_launches_ok(launches, res.lm_iterations):
+        fail(f"[5] an LM iteration's factor work missed K7: {launches}")
     if res.poses.shape != (4956, 3) or not np.isfinite(res.poses).all():
         fail("main path poses are not finite (4956, 3)")
     if occ == 0 or free == 0:
@@ -2936,6 +3161,11 @@ def main() -> int:
     k6_row = tridiag_phase(dev)
     k6_row |= {"launches": launches["block_tridiag"],
                "launches_filtered": launches_f["block_tridiag"]}
+    # 19. the LM's factor work
+    k7_row = factors_phase(dev)
+    k7_row |= {"launches": sum(launches[k] for k in k7_launches()),
+               "launches_filtered": sum(launches_f[k]
+                                        for k in k7_launches())}
 
     print(card)
     # launches: the main paths' runs, gtsam [5] plus online [8]; the
@@ -3015,6 +3245,10 @@ def main() -> int:
         # one PyTorch call computes it; op_ms is the op-by-op solve it
         # replaced on the card
         k6_row,
+        # K7 replaces no Pallas kernel (the JAX LM is one jitted program)
+        # and no one PyTorch call computes it; op_ms is the op-by-op
+        # functions it replaced, on the card
+        k7_row,
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -120,6 +120,16 @@ def library() -> ctypes.CDLL:
     lib.slam_block_tridiag.restype = i
     lib.slam_block_tridiag_scratch.argtypes = [i, i, i, i]
     lib.slam_block_tridiag_scratch.restype = i64
+    # csrc/factors.cu, K7: the leading pointer, the graph (8 pointers, 4
+    # ints, delta), the dtype flag, then each entry's own arguments
+    graph = [p] * 9 + [i] * 4 + [ctypes.c_double, i]
+    lib.slam_factors_linearize.argtypes = graph + [p, p]
+    lib.slam_factors_banded_system.argtypes = (graph + [p] * 6 + [i, i]
+                                               + [p] * 4)
+    lib.slam_factors_cost.argtypes = graph + [p, p]
+    for name in ("slam_factors_linearize", "slam_factors_banded_system",
+                 "slam_factors_cost"):
+        getattr(lib, name).restype = i
     probes = {  # csrc/probes.cu, P1-P9
         "slam_probe_smem_stream": [p, i, p, i, i, p],
         "slam_probe_dynamic_store": [p, i, p, i, i, p],

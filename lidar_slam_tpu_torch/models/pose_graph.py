@@ -15,8 +15,9 @@ falls back to "direct", as the JAX package's optimize does. "direct": the
 same SPIKE solve over the chain alone with a Woodbury correction for the
 loop factors, exact for any loop topology (the revisit closures). "cg":
 block-Jacobi preconditioned conjugate gradients. The Huber and Cauchy
-robust kernels reweight the loop factors (IRLS). The factor Jacobian blocks
-come from torch.func (jacfwd under vmap), one batched pass per LM step.
+robust kernels reweight the loop factors (IRLS). On CPU tensors the factor
+Jacobian blocks come from torch.func (jacfwd under vmap), one batched pass
+per LM step.
 
 One LM core (_levenberg_marquardt: _linearize, _cost, _banded_system)
 serves optimize and the factor-sharded optimize_sharded, which pass in
@@ -24,7 +25,10 @@ only how the damped system is solved and whether the cost goes through a
 psum. The loop reads its done flag once per iteration; CG reads its
 residual norm once per CG iteration. On CUDA tensors the block-tridiagonal
 SPIKE solve behind "banded" and "direct" is K6 (kernels/tridiag.py): three
-launches, float64 inside, no host read.
+launches, float64 inside, no host read; and the factor work of each
+iteration is K7 (kernels/factors.py): one launch linearizes every factor
+(the blocks every solver takes and the gradient), one assembles the banded
+system, one evaluates the cost, all in closed form and float64 inside.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..config import PoseGraphConfig
-from ..kernels import tridiag
+from ..kernels import factors, tridiag
 from ..utils import se2, tracing
 
 
@@ -192,6 +196,13 @@ def kernel_path(device: torch.device, dtype: torch.dtype, b: int) -> bool:
     kernels/tridiag.MAX_B wide."""
     return (device.type == "cuda" and dtype in (torch.float32, torch.float64)
             and b <= tridiag.MAX_B)
+
+
+def factor_kernel_path(device: torch.device, dtype: torch.dtype) -> bool:
+    """Whether the LM's factor work (_linearize, _cost, _banded_system)
+    runs K7 (kernels/factors.py) rather than op by op: CUDA float32 or
+    float64 poses."""
+    return device.type == "cuda" and dtype in (torch.float32, torch.float64)
 
 
 def block_tridiag_solve(A, O, R, q: int = 64):
@@ -394,7 +405,8 @@ class _Factors(NamedTuple):
 
 class _Problem(NamedTuple):
     """The graph as the LM core sees it: the prior (T_prior^-1 and its
-    inverse sigmas), the factor sets, the loops' robust kernel and width."""
+    inverse sigmas), the factor sets, the loops' robust kernel and width;
+    on the factor kernel path, K7's view of them."""
 
     T_prior_inv: torch.Tensor
     inv_prior: torch.Tensor
@@ -403,6 +415,15 @@ class _Problem(NamedTuple):
     robust: str
     delta: float
     eye3: torch.Tensor
+    kernel: factors.FactorGraph | None = None
+
+
+def _on_kernel(p: _Problem, n: int) -> _Problem:
+    """p with K7's FactorGraph of its factor sets (no host read)."""
+    return p._replace(kernel=factors.prepare(
+        n, p.btw.fi, p.btw.fj, p.btw.meas, p.loops.fi, p.loops.fj,
+        p.loops.meas, p.loops.weight, p.T_prior_inv, p.inv_prior,
+        p.btw.inv_sigmas, p.loops.inv_sigmas, p.robust, p.delta))
 
 
 def _problem(x, graph: PoseGraph, robust: str = "none",
@@ -442,7 +463,11 @@ def _linearize(x, p: _Problem):
     """(J, g): the Jacobian blocks (Jp, Jbi, Jbj, Jli, Jlj) of the prior,
     between and loop factors at x, and the gradient J^T r (n, 3) summed in
     that order. A robust kernel scales the loops' weighted blocks and
-    residuals by sqrt(w) (IRLS: every solver sees the reweighted system)."""
+    residuals by sqrt(w) (IRLS: every solver sees the reweighted system).
+    On the factor kernel path one K7 launch."""
+    if p.kernel is not None:
+        tracing.count("pose_graph.linearizations_on_kernel")
+        return factors.lm_linearize(p.kernel, x)
     rp = _prior_residual(x[0], p.T_prior_inv, p.inv_prior)
     Jp = jacfwd(_prior_residual)(x[0], p.T_prior_inv, p.inv_prior)
     g = x.new_zeros(x.shape)
@@ -465,16 +490,21 @@ def _linearize(x, p: _Problem):
 
 def _cost(x, p: _Problem, reduce=None):
     """0.5 |r|^2 of the prior and between factors plus the loop factors'
-    (robust) cost at x; reduce (a psum) sums it across ranks."""
-    rp = _prior_residual(x[0], p.T_prior_inv, p.inv_prior)
-    rb = _set_residual(x, p.btw)
-    rl = _set_residual(x, p.loops)
-    if p.robust == "none":
-        loop_cost = 0.5 * torch.sum(rl * rl)
+    (robust) cost at x; reduce (a psum) sums it across ranks. On the
+    factor kernel path one K7 launch."""
+    if p.kernel is not None:
+        cost = factors.lm_cost(p.kernel, x)
     else:
-        _, rho = _robust_w_rho(torch.sum(rl * rl, dim=1), p.robust, p.delta)
-        loop_cost = torch.sum(rho)
-    cost = 0.5 * (torch.dot(rp, rp) + torch.sum(rb * rb)) + loop_cost
+        rp = _prior_residual(x[0], p.T_prior_inv, p.inv_prior)
+        rb = _set_residual(x, p.btw)
+        rl = _set_residual(x, p.loops)
+        if p.robust == "none":
+            loop_cost = 0.5 * torch.sum(rl * rl)
+        else:
+            _, rho = _robust_w_rho(torch.sum(rl * rl, dim=1), p.robust,
+                                   p.delta)
+            loop_cost = torch.sum(rho)
+        cost = 0.5 * (torch.dot(rp, rp) + torch.sum(rb * rb)) + loop_cost
     return cost if reduce is None else reduce(cost)
 
 
@@ -491,27 +521,32 @@ def _diagonal_blocks(p: _Problem, J, lam, n: int, with_loops: bool = True):
     return D
 
 
-def _banded_system(p: _Problem, J, lam, n: int, band: int,
+def _banded_system(p: _Problem, J, g, lam, n: int, band: int,
                    pad: bool = True):
     """J^T J + lam I in super-block tridiagonal storage (A_sup, O_sup),
-    with the identity on the padded tail poses when `pad`."""
+    with the identity on the padded tail poses when `pad`, and its
+    right-hand side R (n_sup, 3 band, 1): -g, zero on the padded tail. On
+    the factor kernel path one K7 launch."""
+    if p.kernel is not None:
+        return factors.lm_banded_system(p.kernel, J, g, lam, band, pad)
     _, Jbi, Jbj, Jli, Jlj = J
     D = _diagonal_blocks(p, J, lam, n)
     if pad and n % band:
         # padded tail poses: identity diagonal, zero coupling, zero rhs
         D = torch.cat([D, p.eye3.expand(-n % band, 3, 3)])
-    return _banded_scatter(
+    A_sup, O_sup = _banded_scatter(
         n, band, D, torch.cat([p.btw.fj, p.loops.fj]),
         torch.cat([p.btw.fi, p.loops.fi]),
         torch.cat([_jtj(Jbj, Jbi), _jtj(Jlj, Jli)]))
-
-
-def _banded_solve(A_sup, O_sup, g, band: int):
-    """The step (n, 3) of the banded system (A_sup, O_sup) for the
-    gradient g (its rhs -g, zero on the padded tail poses)."""
-    n, n_sup = g.shape[0], A_sup.shape[0]
+    n_sup = A_sup.shape[0]
     R = torch.cat([-g, g.new_zeros((n_sup * band - n, 3))]).reshape(
         n_sup, 3 * band, 1)
+    return A_sup, O_sup, R
+
+
+def _banded_solve(A_sup, O_sup, R, n: int, band: int):
+    """The step (n, 3) of the banded system (A_sup, O_sup, R)."""
+    n_sup = A_sup.shape[0]
     X = block_tridiag_solve(A_sup, O_sup[:n_sup - 1], R, q=32)
     return X.reshape(n_sup * band, 3)[:n]
 
@@ -576,11 +611,15 @@ def _cg_step(p: _Problem, J, g, lam, x0, tol: float, maxiter: int):
 def _levenberg_marquardt(poses0, p: _Problem, solve, reduce, max_iters: int,
                          lambda_init: float, lambda_up: float,
                          lambda_down: float, cost_rtol: float) -> LMResult:
-    """The LM loop of optimize and optimize_sharded. solve(J, g, lam,
+    """The LM loop of optimize and optimize_sharded. solve(p, J, g, lam,
     dx_prev) returns the damped system's step (dx_prev, CG's warm start:
     the last rejected step, zero after an accepted one); reduce sums the
-    cost across ranks (None on one device). One done read an iteration."""
+    cost across ranks (None on one device). One done read an iteration. On
+    the factor kernel path p carries K7's view of the graph, built here
+    once."""
     x, dev = poses0, poses0.device
+    if factor_kernel_path(dev, poses0.dtype):
+        p = _on_kernel(p, poses0.shape[0])
     lam = torch.tensor(lambda_init, dtype=poses0.dtype, device=dev)
     cost = _cost(x, p, reduce)
     stalls = torch.zeros((), dtype=torch.int64, device=dev)
@@ -589,7 +628,7 @@ def _levenberg_marquardt(poses0, p: _Problem, solve, reduce, max_iters: int,
     while it < max_iters:
         J, g = _linearize(x, p)
         with tracing.span("pose_graph.solve"):
-            dx = solve(J, g, lam, dx_prev)
+            dx = solve(p, J, g, lam, dx_prev)
         x_new = x + dx
         cost_new = _cost(x_new, p, reduce)
         accept = cost_new < cost
@@ -649,9 +688,10 @@ def optimize(
     n = poses0.shape[0]
     p = _problem(poses0, graph, robust, robust_delta)
 
-    def solve(J, g, lam, dx_prev):
+    def solve(p, J, g, lam, dx_prev):
         if solver == "banded":
-            return _banded_solve(*_banded_system(p, J, lam, n, band), g, band)
+            return _banded_solve(*_banded_system(p, J, g, lam, n, band), n,
+                                 band)
         if solver == "direct":
             return _direct_solve(p, J, g, lam)
         return _cg_step(p, J, g, lam, dx_prev, cg_tol, cg_iters)
@@ -720,11 +760,12 @@ def optimize_sharded(
     Counterpart of the JAX package's optimize_sharded, on optimize's LM
     core. Poses replicate. Each rank assembles a contiguous block of
     ceil(F / axis size) factors of each set (the last may be shorter or
-    empty) through _banded_system into a local (A, O) and gradient g; rank
-    0 alone adds the prior, lam I and the padding identity, so each counts
-    once. One psum an LM iteration sums (A, O, g) in one flat buffer, and
-    the solve and the accept logic run on every rank on the same bytes, so
-    their control flow cannot diverge; one more psum sums the trial cost.
+    empty) through _banded_system into a local (A, O) and right-hand side
+    R = -g; rank 0 alone adds the prior, lam I and the padding identity, so
+    each counts once. One psum an LM iteration sums (A, O, R) in one flat
+    buffer, and the solve and the accept logic run on every rank on the
+    same bytes, so their control flow cannot diverge; one more psum sums
+    the trial cost.
     Results match optimize(solver="banded") up to the reassociation of the
     sums; the iteration count can differ by one where that moves the step
     at which the relative decrease crosses cost_rtol.
@@ -750,14 +791,15 @@ def optimize_sharded(
     p = p._replace(inv_prior=p.inv_prior * float(lead), btw=shard(p.btw),
                    loops=shard(p.loops))
 
-    def solve(J, g, lam, dx_prev):
-        A, O = _banded_system(p, J, lam * float(lead), n, band, pad=lead)
+    def solve(p, J, g, lam, dx_prev):
+        A, O, R = _banded_system(p, J, g, lam * float(lead), n, band,
+                                 pad=lead)
         # the one fused collective of the iteration
-        A_, O_, g_ = psum(torch.cat([A.reshape(-1), O.reshape(-1),
-                                     g.reshape(-1)]), mesh, axis).split(
-            [A.numel(), O.numel(), g.numel()])
+        A_, O_, R_ = psum(torch.cat([A.reshape(-1), O.reshape(-1),
+                                     R.reshape(-1)]), mesh, axis).split(
+            [A.numel(), O.numel(), R.numel()])
         return _banded_solve(A_.view(A.shape), O_.view(O.shape),
-                             g_.view(g.shape), band)
+                             R_.view(R.shape), n, band)
 
     return _levenberg_marquardt(poses0, p, solve,
                                 lambda c: psum(c, mesh, axis), max_iters,

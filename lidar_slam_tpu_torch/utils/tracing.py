@@ -38,6 +38,11 @@ already holds. The counters:
   pose_graph.solves_on_kernel  block_tridiag_solve calls that K6
                (kernels/tridiag.block_tridiag) served: CUDA tensors, blocks
                at most 32 wide;
+  pose_graph.linearizations_on_kernel  LM trips whose factor work K7
+               (kernels/factors.py) served: the linearization, and on the
+               banded solver the assembly, and the trial cost, one launch
+               each; CUDA float32 or float64 poses, so on the card it
+               equals pose_graph.iterations;
   filter.chunks  chunks of scans through ops/filters.dbscan_filter_scans
                (main.py --filter_lidar: 310 for 4,956 scans);
   filter.pairs   the pair tests those chunks make, scans x P x P.
@@ -170,10 +175,10 @@ def enabled() -> bool:
 
 def _launches() -> dict:
     """The kernel wrappers' own launch counts ("launches.<wrapper>")."""
-    from ..kernels import icp, nn, probes, raywalk, tridiag
+    from ..kernels import factors, icp, nn, probes, raywalk, tridiag
 
     return {f"launches.{name}": fn.launches
-            for mod in (nn, icp, raywalk, probes, tridiag)
+            for mod in (nn, icp, raywalk, probes, tridiag, factors)
             for name, fn in vars(mod).items()
             if callable(fn) and isinstance(getattr(fn, "launches", None),
                                            int)}

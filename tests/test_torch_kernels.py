@@ -16,6 +16,7 @@ from lidar_slam_tpu_torch.config import MapConfig
 from lidar_slam_tpu_torch.kernels import build, probes
 from lidar_slam_tpu_torch.kernels import icp as k5
 from lidar_slam_tpu_torch.kernels import tridiag as k6
+from lidar_slam_tpu_torch.kernels import factors as k7
 from lidar_slam_tpu_torch.kernels.nn import nn_argmin, nn_argmin_rounded
 from lidar_slam_tpu_torch.kernels import raywalk as rw
 from lidar_slam_tpu_torch.kernels.raywalk import (OWNER_SIDE, raywalk_bins,
@@ -29,7 +30,8 @@ from lidar_slam_tpu_torch.tools import pallas_probe, scatter_microbench
 from lidar_slam_tpu_torch.tools import vpu_probe
 from lidar_slam_tpu_torch.utils import io, tracing
 from torch_icp_cases import fused_copy, icp_pairs, lockstep, pose_gap
-from torch_tridiag_cases import chain_graph, spd_chain
+from torch_tridiag_cases import (FACTOR_CASES, chain_graph, factor_case,
+                                 interval_graph, k7_gaps, spd_chain)
 from torch_vpu_tiles import retile
 
 pytestmark = pytest.mark.cuda
@@ -1178,6 +1180,8 @@ def test_banded_lm_on_k6_against_op_by_op(dev, monkeypatch):
         assert counts["pose_graph.solves_on_kernel"] == counts[
             "pose_graph.iterations"] == got.iterations >= 2
         monkeypatch.setattr(pose_graph, "kernel_path", lambda *a: False)
+        monkeypatch.setattr(pose_graph, "factor_kernel_path",
+                            lambda *a: False)
         op = pose_graph.optimize(x0, g, solver="banded", band=10)
         torch.cuda.synchronize()
         monkeypatch.undo()
@@ -1200,3 +1204,143 @@ def test_banded_lm_on_k6_against_op_by_op(dev, monkeypatch):
     assert gap(k64, o64) <= 1e-5
     assert abs(float(k64.cost) - float(o64.cost)) <= 1e-9 * float(o64.cost)
     assert float(k32.cost) <= 1.01 * float(o32.cost)
+
+
+# -- lm_linearize, lm_banded_system, lm_cost: K7 (csrc/factors.cu) ----------
+
+def _k7_graph(dev, name, dtype):
+    """(x, FactorGraph, band) of FACTOR_CASES[name] on dev."""
+    x, g, robust, band = factor_case(name, dtype, dev)
+    p = pose_graph._problem(x, g, robust, 1.0)
+    return x, pose_graph._on_kernel(p, x.shape[0]).kernel, band
+
+
+@pytest.mark.parametrize("name", list(FACTOR_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lm_factors_match_plain(dev, name, dtype):
+    """K7's three entries against their plain versions on the card, on the
+    same inputs, both float64 inside (k7_gaps' scales): in float64 within
+    1e-11, since only the float64 roundings differ (the kernel's fused
+    multiply-adds and CUDA's sincos against the plain version's separate
+    roundings and the host's libm), and the theta column's
+    d(sin w / w)/dw = (cos w - sin w / w) / w cancels to -w/3, so an ulp
+    between the two cosines becomes 1.02e-12 of a block at |omega| near
+    1e-5 on the cells' graph (the other outputs part by under 1e-15); in
+    float32 within 1e-6 (each side rounds its float64 value once, so they
+    part by about an ulp). Each entry one launch, and two launches bit for
+    bit equal (no atomics)."""
+    x, fg, band = _k7_graph(dev, name, dtype)
+    lam = torch.tensor(1e-3, dtype=dtype, device=dev)
+    entries = (k7.lm_linearize, k7.lm_banded_system, k7.lm_cost)
+    base = [f.launches for f in entries]
+    runs = []
+    for _ in range(2):
+        J, g = k7.lm_linearize(fg, x)
+        runs.append((J, g, k7.lm_banded_system(fg, J, g, lam, band),
+                     k7.lm_cost(fg, x)))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(entries, base)] == [2] * 3
+    flat = [J + (g,) + system + (c,) for J, g, system, c in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
+    assert all(t.dtype == dtype for t in flat[0])
+    J, g, system, c = runs[0]
+    want = (k7.lm_linearize_plain(fg, x),
+            k7.lm_banded_system_plain(fg, J, g, lam, band),
+            k7.lm_cost_plain(fg, x))
+    gaps = k7_gaps((J, g), system, c, *want, band)
+    assert max(gaps.values()) <= (1e-11 if dtype is torch.float64
+                                  else 1e-6), gaps
+
+
+def test_lm_factors_reject_bad_inputs(dev):
+    x, fg, band = _k7_graph(dev, "fixed_97", torch.float32)
+    J, g = k7.lm_linearize(fg, x)
+    lam = torch.tensor(1e-3, device=dev)
+    launches = k7.lm_linearize.launches
+    bad = [(lambda: k7.lm_linearize(fg, x.double()), "btw_meas must be"),
+           (lambda: k7.lm_linearize(fg, x[:-1]), r"x must be \(97, 3\)"),
+           (lambda: k7.lm_linearize(fg, x.half()), "float32 or float64"),
+           (lambda: k7.lm_cost(fg._replace(start=fg.start.long()), x),
+            "start must be"),
+           (lambda: k7.lm_cost(fg._replace(consts=fg.consts.cpu()), x),
+            "consts must be contiguous on"),
+           (lambda: k7.lm_banded_system(fg, J, g, lam.double(), band),
+            "lam must be"),
+           (lambda: k7.lm_banded_system(fg, J[:4] + (J[4][:-1],), g, lam,
+                                        band), "Jlj must be"),
+           (lambda: k7.lm_banded_system(fg, J, g, lam, 0), "band must be")]
+    for call, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            call()
+    assert k7.lm_linearize.launches == launches
+
+
+@pytest.mark.parametrize("solver", ["banded", "direct", "cg"])
+def test_lm_on_k7_against_cpu(dev, solver):
+    """optimize on the card (K7's factor work, K6's solve) against the
+    same graph on the CPU (op by op), 600 poses with 60 fixed-interval
+    loops about 70% live: in float64 the iterations equal or within one
+    and the cost within 1e-4 relative (it reads about 1e-12), one counted
+    K7 linearization and cost an iteration (and the first cost), one
+    assembly an iteration on the banded solver; in float32 the cost within
+    1e-4 relative (float32 LM paths part where the float32 op path's cost
+    and Jacobian roundings decide an acceptance, so its iterations are
+    printed, not held)."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        x, g = interval_graph(600, 10, "fixed", seed=600, dtype=dtype)
+        tracing.reset()
+        tracing.enable()
+        try:
+            got = pose_graph.optimize(
+                x.to(dev), type(g)(*(t.to(dev) for t in g)), solver=solver,
+                band=10)
+            torch.cuda.synchronize()
+            counts = tracing.snapshot()["counts"]
+        finally:
+            tracing.disable()
+            tracing.reset()
+        want = pose_graph.optimize(x, g, solver=solver, band=10)
+        it = got.iterations
+        assert counts["pose_graph.linearizations_on_kernel"] == counts[
+            "pose_graph.iterations"] == counts["launches.lm_linearize"] == it
+        assert counts["launches.lm_cost"] == it + 1
+        assert counts["launches.lm_banded_system"] == (
+            it if solver == "banded" else 0)
+        assert abs(float(got.cost) - float(want.cost)) <= 1e-4 * float(
+            want.cost), (dtype, float(got.cost), float(want.cost))
+        out[dtype] = got, want
+    (k64, c64), (k32, c32) = out[torch.float64], out[torch.float32]
+    print(f"{solver}: iterations float64 card {k64.iterations} CPU "
+          f"{c64.iterations}, float32 card {k32.iterations} CPU "
+          f"{c32.iterations}; costs float64 {float(k64.cost):.12g} "
+          f"{float(c64.cost):.12g}, float32 {float(k32.cost):.9g} "
+          f"{float(c32.cost):.9g}")
+    assert abs(k64.iterations - c64.iterations) <= 1
+
+
+def test_banded_lm_iteration_launches(dev):
+    """The device launches of one banded LM iteration at the offline cells'
+    shape (FACTOR_CASES["cells"], float32), counted with torch.profiler
+    over optimize runs of 2 and 5 iterations (cost_rtol 0: none stops
+    early): at most 60 (K7's three, K6's three, the step, the LM's
+    bookkeeping and the done read's copy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, g, _, band = factor_case("cells", torch.float32, dev)
+
+    def launches(iters):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = pose_graph.optimize(x, g, solver="banded", band=band,
+                                      max_iters=iters, cost_rtol=0.0)
+            torch.cuda.synchronize()
+        assert res.iterations == iters
+        return sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+
+    launches(2)  # warm-up
+    per_iteration = (launches(5) - launches(2)) / 3
+    print(f"device launches an LM iteration: {per_iteration}")
+    assert 6 <= per_iteration <= 60
