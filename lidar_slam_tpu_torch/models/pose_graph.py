@@ -556,9 +556,32 @@ def _direct_solve(p: _Problem, J, g, lam):
     J^T J + lam I with the right-hand sides [-g | U], U's columns the loop
     Jacobians transposed (1 + 3L columns, every loop candidate, live or
     not), then the Woodbury correction x = y_b - Y_u (I + U^T Y_u)^-1 U^T
-    y_b."""
+    y_b. Counts the right-hand sides, 1 + 3L, as
+    "pose_graph.woodbury_columns"; the capacitance solve checks its result
+    on the host (torch.linalg.solve), one read (host.syncs).
+
+    On CUDA a float32 step is computed in float64, as K6 and K7 compute,
+    and returned in float32: in float32 the capacitance system of revisit
+    arcs thousands of poses long (a 4,956-pose two-lap drive with about 80
+    revisits) rounded the step so far that the LM stopped up to 6.5% of
+    the cost above the optimum; in float64 within 1e-8 of it. On the CPU a
+    float32 step stays float32, as the JAX package's is: in float64 there
+    the outlier graph of tests/test_torch_pose_graph.py's
+    test_robust_lm_matches_jax took 4 LM iterations against JAX's 6
+    (Cauchy) and its poses ended 3.05e-5 from JAX's (plain loss)."""
+    if g.dtype != torch.float32 or g.device.type != "cuda":
+        return _woodbury_step(p, J, g, lam)
+    f64 = torch.float64
+    return _woodbury_step(p._replace(eye3=p.eye3.to(f64)),
+                          tuple(t.to(f64) for t in J), g.to(f64),
+                          lam.to(f64)).to(g.dtype)
+
+
+def _woodbury_step(p: _Problem, J, g, lam):
+    """_direct_solve's step in the dtype of its arguments."""
     Jp, Jbi, Jbj, Jli, Jlj = J
     n, n_loops, dev = g.shape[0], Jli.shape[0], g.device
+    tracing.count("pose_graph.woodbury_columns", 1 + 3 * n_loops)
     A = _diagonal_blocks(p, J, lam, n, False)
     O = _jtj(Jbj, Jbi)  # O_i = H[i+1, i]
     if n_loops:
@@ -581,6 +604,7 @@ def _direct_solve(p: _Problem, J, g, lam):
            + torch.einsum("lab,lbm->lam", Jlj, Y[p.loops.fj]))
     UtY = UtY.reshape(3 * n_loops, -1)
     S = torch.eye(3 * n_loops, dtype=g.dtype, device=dev) + UtY[:, 1:]
+    tracing.count("host.syncs")
     zc = torch.linalg.solve(S, UtY[:, 0])
     return yb - torch.einsum("nim,m->ni", Y[:, :, 1:], zc)
 

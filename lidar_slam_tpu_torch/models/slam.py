@@ -175,8 +175,8 @@ def proximity_loop_candidates(poses, min_gap: int = 100,
     if n <= min_gap:
         return (np.zeros(0, np.int32), np.zeros(0, np.int32))
     idx, d2 = _nearest_revisits(pos, int(min_gap), min(k, n))
-    return _rank_and_cap(idx.cpu().numpy(), d2.cpu().numpy(),
-                         radius * radius, max_candidates, suppress_window)
+    return _rank_and_cap(_to_host(idx), _to_host(d2), radius * radius,
+                         max_candidates, suppress_window)
 
 
 def scan_descriptors(ranges: torch.Tensor, masks: torch.Tensor,
@@ -241,7 +241,8 @@ def descriptor_loop_candidates(ranges, masks, range_min: float,
                             float(range_min), float(range_max),
                             n_bins=int(n_bins))
     idx, d2, cons = _nearest_descriptor_revisits(desc, int(min_gap), int(k))
-    return _rank_and_cap(idx.cpu().numpy(), d2.cpu().numpy(),
+    tracing.count("host.syncs")  # float(cons)
+    return _rank_and_cap(_to_host(idx), _to_host(d2),
                          float(rel_thresh) * float(cons), max_candidates,
                          suppress_window)
 
@@ -307,10 +308,10 @@ def verify_revisit_pairs_seeded(pts3, masks, pli, plj, est_poses, pg,
     cs2 = se2.get_relative_pose(est[cidx + 1], est[cidx])
     _, _, cerr, _ = compute_loop_closures_pairs(
         pts3, masks, cidx, cidx + 1, float(max_dist), 0.0, seed_T=cs2, **kw)
-    scale = float(np.median(cerr.cpu().numpy()))
-    perr = perr.cpu().numpy()
-    accept = pacc.cpu().numpy() & (perr < pg.proximity_err_rel * scale)
-    pT_np, s_np = pT.cpu().numpy(), seed2.cpu().numpy()
+    scale = float(np.median(_to_host(cerr)))
+    perr = _to_host(perr)
+    accept = _to_host(pacc) & (perr < pg.proximity_err_rel * scale)
+    pT_np, s_np = _to_host(pT), _to_host(seed2)
     dyaw = (np.arctan2(pT_np[:, 1, 0], pT_np[:, 0, 0])
             - np.arctan2(s_np[:, 1, 0], s_np[:, 0, 0]))
     dyaw = np.abs((dyaw + np.pi) % (2 * np.pi) - np.pi)
@@ -344,45 +345,60 @@ def revisit_closures(pts3, masks, poses, pg, ranges, range_min: float,
     INVERTED ICP output: ICP of scan i onto scan j gives T_j^-1 T_i, the
     loop residual wants T_i^-1 T_j, and revisit transforms are far from
     identity, where the uninverted one corrupts translation by up to 2|t|
-    (the fixed path keeps the reference's uninverted measurement)."""
+    (the fixed path keeps the reference's uninverted measurement).
+
+    Each phase is a span (utils/tracing: "revisit.propose",
+    "revisit.verify", "revisit.suppress"); while tracing is on, the
+    verification's ends in a device synchronize on CUDA, so that its host
+    seconds hold its device work. The counters "revisit.proposed" and
+    "revisit.kept" count the pairs proposed and kept."""
     dev = pts3.device
-    if pg.loop_proposer == "proximity":
-        pli, plj = proximity_loop_candidates(
-            poses, min_gap=pg.proximity_min_gap, radius=pg.proximity_radius,
-            max_candidates=pg.proximity_max_candidates,
-            suppress_window=pg.proximity_suppress)
-        max_dist = 2.0 * pg.proximity_radius
-        seeded = pg.proximity_seed == "estimate"
-    elif pg.loop_proposer == "descriptor":
-        pli, plj = descriptor_loop_candidates(
-            ranges, masks, float(range_min), float(range_max),
-            min_gap=pg.proximity_min_gap, n_bins=pg.descriptor_bins,
-            rel_thresh=pg.descriptor_rel_thresh,
-            max_candidates=pg.proximity_max_candidates,
-            suppress_window=pg.proximity_suppress)
-        max_dist = pg.descriptor_max_dist
-        seeded = False
-    else:
-        raise ValueError(f"unknown loop proposer {pg.loop_proposer!r}")
+    with tracing.span("revisit.propose"):
+        if pg.loop_proposer == "proximity":
+            pli, plj = proximity_loop_candidates(
+                poses, min_gap=pg.proximity_min_gap,
+                radius=pg.proximity_radius,
+                max_candidates=pg.proximity_max_candidates,
+                suppress_window=pg.proximity_suppress)
+            max_dist = 2.0 * pg.proximity_radius
+            seeded = pg.proximity_seed == "estimate"
+        elif pg.loop_proposer == "descriptor":
+            pli, plj = descriptor_loop_candidates(
+                ranges, masks, float(range_min), float(range_max),
+                min_gap=pg.proximity_min_gap, n_bins=pg.descriptor_bins,
+                rel_thresh=pg.descriptor_rel_thresh,
+                max_candidates=pg.proximity_max_candidates,
+                suppress_window=pg.proximity_suppress)
+            max_dist = pg.descriptor_max_dist
+            seeded = False
+        else:
+            raise ValueError(f"unknown loop proposer {pg.loop_proposer!r}")
+    tracing.count("revisit.proposed", int(pli.size))
     none = torch.zeros(0, dtype=torch.int64, device=dev)
     out = RevisitClosures(none, none, pts3.new_zeros((0, 3, 3)), pli.size)
     if not pli.size:
+        tracing.count("revisit.kept", 0)
         return out
-    if seeded:
-        pT, pacc, perr = verify_revisit_pairs_seeded(
-            pts3, masks, pli, plj, poses, pg, chunk_size=chunk_size)
-    else:
-        li = torch.as_tensor(pli, dtype=torch.int64, device=dev)
-        lj = torch.as_tensor(plj, dtype=torch.int64, device=dev)
-        pT, pacc, perr, _ = compute_loop_closures_pairs(
-            pts3, masks, li, lj, float(max_dist), 0.0,
-            chunk_size=chunk_size, gate_yaw=False)
-        perr = perr.cpu().numpy()
-        # aliased false revisits pass the translation test but stall at a
-        # high ICP error
-        pacc = pacc.cpu().numpy() & (perr < pg.proximity_max_err)
-    keep = suppress_verified_pairs(pli, plj, perr, pacc,
-                                   pg.proximity_suppress)
+    with tracing.span("revisit.verify"):
+        if seeded:
+            pT, pacc, perr = verify_revisit_pairs_seeded(
+                pts3, masks, pli, plj, poses, pg, chunk_size=chunk_size)
+        else:
+            li = torch.as_tensor(pli, dtype=torch.int64, device=dev)
+            lj = torch.as_tensor(plj, dtype=torch.int64, device=dev)
+            pT, pacc, perr, _ = compute_loop_closures_pairs(
+                pts3, masks, li, lj, float(max_dist), 0.0,
+                chunk_size=chunk_size, gate_yaw=False)
+            perr = _to_host(perr)
+            # aliased false revisits pass the translation test but stall
+            # at a high ICP error
+            pacc = _to_host(pacc) & (perr < pg.proximity_max_err)
+        if tracing.enabled() and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with tracing.span("revisit.suppress"):
+        keep = suppress_verified_pairs(pli, plj, perr, pacc,
+                                       pg.proximity_suppress)
+    tracing.count("revisit.kept", int(keep.sum()))
     if not keep.any():
         return out
     sel = np.where(keep)[0]
@@ -515,8 +531,8 @@ def run_slam(
                                       ranges, range_min, range_max,
                                       chunk_size=chunk_size)
                 result.revisit_proposed = rv.proposed
-                result.revisit_pairs = torch.stack(
-                    [rv.loop_i, rv.loop_j], dim=-1).cpu().numpy()
+                result.revisit_pairs = _to_host(torch.stack(
+                    [rv.loop_i, rv.loop_j], dim=-1))
                 if rv.loop_i.numel():
                     li, lj, loop_T, accept = rv.append_to(li, lj, loop_T,
                                                           accept)

@@ -24,14 +24,16 @@ already holds. The counters:
                on CUDA, one nn_argmin launch each; on the fused path also
                one icp_sweep_tail launch);
   host.syncs   reads of a device value back to the host by the port's own
-               code on the gtsam path with fixed-interval loops, in
-               online_step, in pf_step (which makes none) and in
-               models/pose_graph.optimize_sharded: the ICP `done` read,
+               code on the gtsam path with fixed-interval loops or revisit
+               closures, in online_step, in pf_step (which makes none) and
+               in models/pose_graph.optimize_sharded: the ICP `done` read,
                the LM `done` read (one a trip of the LM core both
                pose-graph entry points share) and CG residual reads, the
-               pose-graph span check, the map build's ray budget and bin
-               total, the loss gate when its threshold is finite, and
-               run_slam's copies of its results;
+               pose-graph span check, the direct solve's capacitance
+               solve, the revisit proposers' candidate reads and the
+               verification's accept and error reads, the map build's ray
+               budget and bin total, the loss gate when its threshold is
+               finite, and run_slam's copies of its results;
   pose_graph.iterations  LM trips of models/pose_graph.optimize and
                optimize_sharded (one linear solve each, in a
                `pose_graph.solve` span);
@@ -43,6 +45,12 @@ already holds. The counters:
                banded solver the assembly, and the trial cost, one launch
                each; CUDA float32 or float64 poses, so on the card it
                equals pose_graph.iterations;
+  pose_graph.woodbury_columns  right-hand sides of the direct solve's
+               block-tridiagonal solve, 1 + 3L for L loop factors, summed
+               over its calls (one an LM trip on the direct solver);
+  revisit.proposed, revisit.kept  revisit pairs that
+               models/slam.revisit_closures proposed and kept after
+               verification and suppression;
   filter.chunks  chunks of scans through ops/filters.dbscan_filter_scans
                (main.py --filter_lidar: 310 for 4,956 scans);
   filter.pairs   the pair tests those chunks make, scans x P x P.
